@@ -6,11 +6,12 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-three phases; any mismatch raises, so the script exits non-zero:
+four phases; any mismatch raises, so the script exits non-zero:
 
-(a) kernels: the GEMM and RMSNorm kernels against their plain torch
-    versions on the card, at the serving path's shapes, and their times
-    (cold L2) beside the plain version, the library call and the bound;
+(a) kernels: the GEMM, RMSNorm and flash-attention kernels against their
+    plain torch versions on the card, at the serving paths' shapes, and
+    their times (cold L2) beside the plain version, the library call and
+    the bound;
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -19,7 +20,16 @@ three phases; any mismatch raises, so the script exits non-zero:
     ffn=8960)`` on the card drains launch/serve.py's trace (2 prompts, 4
     decode steps each); every served output is held to ``execute_graph``
     of its bucket graph on CPU tensors at 1e-4, and both kernels must have
-    launched during this phase.
+    launched during this phase;
+(d) LM serving: qwen3-8b at full width and depth (configs/qwen3_8b.py,
+    bf16, random weights from a seeded generator) prefills prompts of 77,
+    256, 511 and 1000 tokens and a batch of 2 x 128, and greedily decodes
+    8 tokens after each; the logits must be finite, flash attention must
+    launch once per layer per prefill and RMSNorm must launch.  Then
+    ``decode_step`` fed token S after ``prefill`` of S tokens is held to
+    ``prefill`` of S + 1 tokens (the flash-attention path against the
+    plain decode attention): in bf16 at full depth, and in fp32 on the
+    first 4 layers at full width.
 
 Standard output: per-phase wall times, the card's name and power limit
 (the line of ``nvidia-smi --query-gpu=name,power.limit``), a
@@ -70,6 +80,7 @@ def main() -> int:
 
     from repro_torch.core import runtime  # noqa: F401  (fp32 backend flags)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
@@ -81,26 +92,38 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
     print(f"phase build: {build_s:.2f} s")
 
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sweep, kernels = phase_kernels(torch, dev, mm, rms)
+    sweep, kernels = phase_kernels(torch, dev, mm, rms, fa)
     print(f"phase a kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     phase_plans(torch, dev)
     print(f"phase b plans: {time.perf_counter() - t0:.2f} s")
 
-    mm.launches = 0
-    rms.launches = 0
+    counted = {"matmul": mm, "rmsnorm": rms, "flash_attention": fa}
+    reset_launches(counted)
     t0 = time.perf_counter()
     served = phase_serve(torch, dev)
-    launches = {"matmul": mm.launches, "rmsnorm": rms.launches}
-    per_request = {k: v / served for k, v in launches.items()}
+    c_launches = read_launches(counted)
+    per_request = {k: v / served for k, v in c_launches.items()}
     print(f"phase c serve: {time.perf_counter() - t0:.2f} s, {served} "
-          f"requests served, launches {launches}, per request {per_request}")
+          f"requests served, launches {c_launches}, per request "
+          f"{per_request}")
+
+    t0 = time.perf_counter()
+    d_launches = phase_lm(torch, dev, smi[0], counted)
+    print(f"phase d LM serving: {time.perf_counter() - t0:.2f} s, "
+          f"launches {d_launches}")
+    # each kernel's launches come from the serving path it lies on: K1 and
+    # K2 from phase c (the tiled runtime), K3 from phase d (the LM)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        path = d_launches if k["name"] == "flash_attention" else c_launches
+        k["launches"] = path[k["name"]]
+        k["launches_by_path"] = {"c": c_launches[k["name"]],
+                                 "d": d_launches[k["name"]]}
         if k["launches"] == 0:
-            raise RuntimeError(f"{k['name']} never launched on the main path")
+            raise RuntimeError(f"{k['name']} never launched on its path")
 
     print(smi[0])
     print(json.dumps({"kernel_sweep": sweep}))
@@ -112,6 +135,16 @@ def main() -> int:
 
 
 # ---------------------------------------------------------------- timing
+
+
+def reset_launches(counted) -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for mod in counted.values():
+        mod.launches = 0
+
+
+def read_launches(counted) -> dict:
+    return {name: mod.launches for name, mod in counted.items()}
 
 
 def time_ms(torch, fn, flush) -> float:
@@ -139,7 +172,29 @@ def bound(flops: float, nbytes: float, peak: float):
 # ---------------------------------------------------------------- phase a
 
 
-def phase_kernels(torch, dev, mm, rms):
+# B, S, H, KV, Dh, causal, window, dtype, what: tests/test_kernels.py's
+# sweep, then the LM serving shapes
+ATTN_ROWS = [
+    (2, 256, 4, 2, 64, True, None, "float32", "sweep"),
+    (1, 128, 8, 8, 32, True, 64, "float32", "sweep"),
+    (2, 128, 4, 1, 64, False, None, "float32", "sweep"),
+    (1, 256, 6, 2, 128, True, 96, "float32", "sweep"),
+    (1, 128, 4, 2, 64, True, None, "bfloat16", "sweep"),
+    (1, 512, 2, 2, 64, True, 128, "float32", "sweep"),
+    (1, 77, 32, 8, 128, True, None, "bfloat16", "qwen3-8b"),
+    (1, 1000, 32, 8, 128, True, None, "bfloat16", "qwen3-8b"),
+    (1, 1000, 32, 8, 128, True, None, "float32", "qwen3-8b"),
+    (2, 128, 32, 8, 128, True, None, "bfloat16", "qwen3-8b"),
+    (1, 2048, 16, 8, 256, True, 1024, "bfloat16", "gemma3-12b local"),
+    (1, 500, 16, 16, 80, False, None, "bfloat16", "hubert-xlarge"),
+]
+# the row whose numbers stand for K3 in the kernels line
+ATTN_MAIN = (1, 1000, 32, 8, 128, True, None, "bfloat16", "qwen3-8b")
+
+
+def phase_kernels(torch, dev, mm, rms, fa):
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                       attention_ref)
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -227,6 +282,55 @@ def phase_kernels(torch, dev, mm, rms):
                     "library_ms": (None if lib_rms is None else
                                    lambda: lib_rms(x, (d,), None, 1e-6))},
                    3.0 * rows * d, 2 * rows * d * x.element_size())
+    # K2 on the LM path (qwen3-8b, bf16): ln1/ln2/ln_f rows at prefill
+    # (S = 1000) and decode, and the qk-norm rows of width Dh (B*S*H)
+    for rows, d in ((1000, 4096), (1, 4096), (32000, 128)):
+        x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
+        g = torch.randn(d, generator=gen, device=dev).bfloat16()
+        record("rmsnorm", f"qwen3-8b {rows}x{d}", torch.bfloat16,
+               rms.rmsnorm(x, g), rmsnorm_ref(x, g), (2e-2, 2e-2),
+               {"ms": lambda: rms.rmsnorm(x, g),
+                "plain_ms": lambda: rmsnorm_ref(x, g),
+                "library_ms": (None if lib_rms is None else
+                               lambda: lib_rms(x, (d,), g, 1e-6))},
+               4.0 * rows * d, (2 * rows * d + d) * x.element_size())
+
+    # K3: each row's bound counts the (query, key) pairs its masks allow
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for case in ATTN_ROWS:
+        B, S, H, KV, Dh, causal, win, dt, what = case
+        dtype = dtypes[dt]
+        q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(dtype)
+        pos = torch.arange(S, device=dev)
+        allowed = attention_mask(pos, pos, causal, win)
+        pairs = int(allowed.sum().item())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if win is None:
+            def lib():
+                return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            def lib():
+                return sdpa(qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+        tol = 5e-5 if dtype == torch.float32 else 2e-2
+        label = (f"{what} B{B} S{S} H{H}/{KV} Dh{Dh} "
+                 f"{'causal' if causal else 'bidirectional'}"
+                 f"{'' if win is None else f' window {win}'}")
+        row = record(
+            "flash_attention", label, dtype,
+            fa.flash_attention(q, k, v, causal=causal, window=win),
+            attention_ref(q, k, v, causal=causal, window=win), (tol, tol),
+            {"ms": lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=win),
+             "plain_ms": lambda: attention_ref(q, k, v, causal=causal,
+                                               window=win),
+             "library_ms": lib},
+            4.0 * B * H * Dh * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+        if case == ATTN_MAIN:
+            entries["flash_attention"] = row
     del flush
     torch.cuda.empty_cache()
 
@@ -235,6 +339,9 @@ def phase_kernels(torch, dev, mm, rms):
                    "src/repro/kernels/matmul/matmul.py:38"),
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/rmsnorm.py:20"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:78"),
     }
     # "ms" and "kernel_ms" are the same measurement under the two names
     # that readers of this line look for
@@ -350,6 +457,209 @@ def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960) -> int:
           f"over {sorted(buckets, key=str)}; rounds {rep['rounds']} "
           f"(co {rep['co_rounds']}, floor {rep['floor_rounds']})")
     return rep["served"]
+
+
+# ---------------------------------------------------------------- phase d
+
+LM_ARCH = "qwen3-8b"
+LM_PROMPTS = [(1, 77), (1, 256), (1, 511), (1, 1000), (2, 128)]   # (B, S)
+LM_DECODE = 8            # greedy tokens decoded after each prefill
+LM_CHECK_S = (77, 1000)  # prompt lengths of the decode-vs-prefill checks
+LM_FP32_LAYERS = 4       # depth of the float32 copy in those checks
+# decode-vs-prefill tolerance, as the relative L2 error of the logits.
+# bf16, 36 layers: the two paths round activations to bf16 at different
+# places (prefill's GEMMs over S + 1 rows and flash attention, against
+# decode's single-row GEMMs and plain attention), each rounding worth
+# 2^-9 of a value; over 36 layers with random weights these add to a few
+# 1e-2 at most.  fp32, 4 layers, TF32 off: fp32 rounding (6e-8) over a
+# few thousand-term sums leaves ~1e-6, so 1e-3 is loose by design.
+LM_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def _teacher_forced(torch, model, cfg, params, x):
+    """``decode_step`` fed x[:, S] after ``prefill(x[:, :S])`` against the
+    last logits of ``prefill(x[:, :S + 1])``: (relative L2 error, max abs
+    error, max |logit|, greedy tokens agree)."""
+    S = x.shape[1] - 1
+    want, _ = model.prefill(cfg, params, x, max_seq=S + 1)
+    _, cache = model.prefill(cfg, params, x[:, :S], max_seq=S + 1)
+    got, _ = model.decode_step(cfg, params, cache, x[:, S])
+    if not bool(torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits in the decode check")
+    d = (got - want).float()
+    return ((d.norm() / want.float().norm()).item(), d.abs().max().item(),
+            want.abs().max().item(),
+            bool((got.argmax(-1) == want.argmax(-1)).all()))
+
+
+def phase_lm(torch, dev, card, counted):
+    """Serve LM_ARCH at full width and depth, then the decode-vs-prefill
+    checks; returns each kernel's launches in the serving run
+    (``counted``: name -> kernel wrapper module)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.models import stacking
+    from repro_torch.models.api import get_model
+
+    cfg = registry.get_config(LM_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"lm: {cfg.name} (d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads}/{cfg.n_kv} heads, Dh {cfg.head_dim_}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}): {n_params / 1e9:.3f} B params "
+          f"({n_params * 2 / 1e9:.2f} GB) made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab, bs)).to(dev)
+               for bs in LM_PROMPTS]
+
+    def serve(x):
+        """prefill, then LM_DECODE greedy decode steps: (prefill s,
+        decode s per token, tokens)"""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(cfg, params, x,
+                                      max_seq=x.shape[1] + LM_DECODE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = []
+        for _ in range(LM_DECODE):
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"non-finite logits at {len(toks)}")
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, cache = model.decode_step(cfg, params, cache, tok)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits after decoding")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if cache["pos"].tolist() != [x.shape[1] + LM_DECODE] * x.shape[0]:
+            raise AssertionError(f"cache pos {cache['pos'].tolist()}")
+        return t1 - t0, (t2 - t1) / LM_DECODE, torch.stack(toks, 1)
+
+    serve(batches[0][:, :16])            # warm-up: cuBLAS and allocator
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counted)
+    times = [serve(x) for x in batches]
+    launches = read_launches(counted)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != cfg.n_layers * len(batches):
+        raise AssertionError(f"flash attention launched "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.n_layers} x {len(batches)} prefills")
+    if launches["rmsnorm"] == 0:
+        raise AssertionError("rmsnorm never launched in LM serving")
+    for (B, S), (pre_s, dec_s, toks) in zip(LM_PROMPTS, times):
+        print(f"lm serve B{B} S{S}: prefill {pre_s * 1e3:.3f} ms, decode "
+              f"{dec_s * 1e3:.3f} ms/token ({B * LM_DECODE} tokens: "
+              f"{toks[0].tolist()}) [{card}]")
+    print(f"lm serve: peak memory {peak:.3f} GB [{card}]")
+    print(json.dumps({"lm_serve": {
+        "arch": cfg.name, "card": card, "peak_gb": peak,
+        "prefill_ms": {f"B{B} S{S}": t[0] * 1e3
+                       for (B, S), t in zip(LM_PROMPTS, times)},
+        "decode_ms_per_step": {f"B{B} S{S}": t[1] * 1e3
+                               for (B, S), t in zip(LM_PROMPTS, times)},
+        "launches": launches}}))
+
+    i = max(range(len(LM_PROMPTS)), key=lambda j: LM_PROMPTS[j][1])
+    x = batches[i]
+    _, cache = model.prefill(cfg, params, x, max_seq=x.shape[1] + 1)
+    tok = x[:, -1]
+    for what, fn, wall in (
+            ("prefill", lambda: model.prefill(
+                cfg, params, x, max_seq=x.shape[1] + 1), times[i][0]),
+            ("decode step", lambda: model.decode_step(
+                cfg, params, cache, tok), times[i][1])):
+        busy, kernels, top = _device_busy_s(torch, fn)
+        share = ("not measured" if kernels == 0 else
+                 f"{1 - busy / wall:.3f} (of the unprofiled "
+                 f"{wall * 1e3:.3f} ms)")
+        print(f"lm profile {what} B{x.shape[0]} S{x.shape[1]}: "
+              f"{kernels} kernels, device busy {busy * 1e3:.3f} ms, "
+              f"idle share {share} [{card}]; top kernels (ms) {top}")
+    del cache
+
+    results = []
+    for S in LM_CHECK_S:
+        x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
+        results.append((cfg.dtype, cfg.n_layers, S,
+                        _teacher_forced(torch, model, cfg, params, x)))
+
+    # a float32 copy of the first layers, TF32 off; the bf16 model freed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
+                                dtype="float32")
+    p32 = {"embed": params["embed"], "ln_f": params["ln_f"],
+           "head": params["head"], "tail": [],
+           "blocks": [stacking.tree_map(lambda t: t[:LM_FP32_LAYERS], s)
+                      for s in params["blocks"]]}
+    p32 = stacking.tree_map(lambda t: t.float(), p32)
+    del params
+    torch.cuda.empty_cache()
+    for S in LM_CHECK_S:
+        x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
+        results.append((cfg32.dtype, cfg32.n_layers, S,
+                        _teacher_forced(torch, model, cfg32, p32, x)))
+    del p32
+    failed = []
+    for dtype, n_layers, S, (rel, err, scale, same) in results:
+        ok = rel <= LM_TOL[dtype]
+        print(f"lm decode-vs-prefill {dtype} {n_layers} layers S{S}: "
+              f"relative L2 error {rel:.3e} (limit {LM_TOL[dtype]:.0e}), "
+              f"max abs error {err:.3e} of max |logit| {scale:.3f}, "
+              f"greedy token {'agrees' if same else 'differs'}"
+              f"{'' if ok else '  FAILED'}")
+        if not ok:
+            failed.append((dtype, n_layers, S))
+    if failed:
+        raise AssertionError(f"decode-vs-prefill beyond tolerance: {failed}")
+    return launches
+
+
+def _device_busy_s(torch, fn):
+    """(seconds the card spent in kernels during one call of ``fn``, the
+    number of kernels, the six costliest kernel names with their ms), from
+    a ``torch.profiler`` trace; busy time is the union of the kernels'
+    intervals, so overlapping kernels count once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return busy * 1e-6, len(events), [(n[:60], t * 1e-3) for n, t in top]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

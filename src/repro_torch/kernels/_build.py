@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-Every source in ``src/repro_torch/csrc/*.cu`` is compiled by ONE ``nvcc``
-call for ``sm_90a`` into a shared library under ``build/repro_torch/`` at
-the repository root, on first use.  The library's name carries a hash of
+Every source in ``src/repro_torch/csrc/*.cu`` is compiled for ``sm_90a``
+by its own ``nvcc`` process, all started together, and the objects are
+linked into one shared library under ``build/repro_torch/`` at the
+repository root, on first use.  The library's name carries a hash of
 the sources and flags, so an edited kernel is rebuilt and an unchanged one
 is loaded as it is.  The sources expose a plain C interface (no PyTorch
 headers), which keeps the build to seconds.
@@ -25,7 +26,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -39,6 +40,13 @@ SIGNATURES = {
                           _LL, _LL, _LL, _LL, _LL, _LL, _P],
     "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _P],
     "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _P],
+    # q, k, v, o, B, S, H, KV, Dh, 9 strides, causal, window, scale, stream
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(_LL), _I, _I,
+                                  ctypes.c_float, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   ctypes.POINTER(_LL), _I, _I,
+                                   ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
@@ -75,13 +83,35 @@ def library_path() -> Path:
 def _build(path: Path) -> None:
     global build_log
     path.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sources():
+        obj = path.parent / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, path)       # atomic: concurrent builds never clash
 
 

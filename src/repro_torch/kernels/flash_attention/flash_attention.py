@@ -1,0 +1,89 @@
+"""Flash attention: online-softmax GQA attention with causal and
+sliding-window masks, fp32 arithmetic, output in q's dtype.
+
+q is (B,S,H,Dh) and k/v are (B,S,KV,Dh) with H % KV == 0; query head h
+reads KV head ``h // (H // KV)``.  CUDA tensors launch the hand-written
+kernel in ``csrc/flash_attention.cu``, reading q/k/v through their
+strides; CPU tensors run the plain versions of
+:mod:`~repro_torch.kernels.flash_attention.ref` (the chunked form beyond
+1024 positions, the exact one below).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import (attention_chunked,
+                                                     attention_ref)
+
+_ENTRY = {torch.float32: "repro_flash_attention_f32",
+          torch.bfloat16: "repro_flash_attention_bf16"}
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)   # the kernel's Dh instances
+_MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
+# beyond which the exact O(S^2) plain version gives way to the chunked one
+CHUNKED_THRESHOLD = 1024
+
+launches = 0               # kernel launches since the last reset
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes fp32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q/k/v on {q.device}, {k.device}, {v.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B,S,H,Dh) and k = v (B,S,KV,Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, Dh = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, Dh):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.shape[2] == 0 or H % k.shape[2] != 0:
+        raise ValueError(f"{H} query heads are not a multiple of "
+                         f"{k.shape[2]} KV heads")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"head width {Dh} is not one of {HEAD_DIMS}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    _check(q, k, v)
+    if window is not None and window < 0:
+        raise ValueError(f"window {window} is negative")
+    if q.device.type == "cpu":
+        if q.shape[1] > CHUNKED_THRESHOLD:
+            return attention_chunked(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    if H > _MAX_GRID or B > _MAX_GRID:
+        raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    lib = _build.library()
+    global launches
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        launches += 1
+        rc = getattr(lib, _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, KV, Dh, strides, int(causal),
+            # a window of S or more masks nothing: clamped, it fits an int
+            -1 if window is None else min(int(window), S),
+            1.0 / math.sqrt(Dh), stream)
+    _build.check(rc, "flash_attention")
+    return out

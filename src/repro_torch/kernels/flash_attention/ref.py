@@ -1,0 +1,85 @@
+"""Plain torch versions of flash attention (GQA + causal + sliding window):
+the exact softmax and the chunked online-softmax form."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) bool: may query position ``qpos[i]`` attend ``kpos[j]``."""
+    d = qpos[:, None] - kpos[None, :]
+    mask = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        mask &= d >= 0
+    if window is not None:
+        mask &= d < window
+        if not causal:
+            mask &= -d < window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,H,Dh); k,v: (B,S,KV,Dh) with H % KV == 0.  Returns (B,S,H,Dh).
+
+    ``window``: position i attends to j with i-window < j <= i (and j <= i
+    if causal).  Exact softmax in float32."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    assert H % KV == 0
+    groups = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    qh = q.reshape(B, S, KV, groups, Dh).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    mask = attention_mask(pos, pos, causal, window)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return ctx.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      block_k: int = 1024) -> torch.Tensor:
+    """The flash-attention algorithm over KV chunks with the online-softmax
+    running state: numerically equivalent to :func:`attention_ref` in
+    O(S * block_k) memory instead of O(S^2)."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    bk = min(block_k, S)
+    while S % bk != 0:
+        bk -= 1
+    scale = 1.0 / math.sqrt(Dh)
+    qh = q.reshape(B, S, KV, groups, Dh).float()
+    qpos = torch.arange(S, device=q.device)
+    m = torch.full((B, KV, groups, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, groups, S), device=q.device)
+    acc = torch.zeros((B, KV, groups, S, Dh), device=q.device)
+    for k0 in range(0, S, bk):
+        kblk = k[:, k0:k0 + bk].float()
+        vblk = v[:, k0:k0 + bk].float()
+        kpos = k0 + torch.arange(bk, device=q.device)
+        msk = attention_mask(qpos, kpos, causal, window)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qh, kblk) * scale
+        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(msk, p, torch.zeros_like(p))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                    vblk)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+    return out.to(q.dtype)

@@ -6,12 +6,15 @@ when no CUDA device is visible.  On a machine with an H100 run
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms
@@ -89,3 +92,70 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, gain):
     assert rms.launches == before + 1
     tol = 1e-5 if dtype == "float32" else 2e-2
     _close(got, rmsnorm_ref(x, g), tol, tol)
+
+
+# B, S, H, KV, Dh, causal, window: tests/test_kernels.py's sweep, then the
+# serving shapes of qwen3-8b, gemma3-12b's local layers and hubert-xlarge
+ATTN_CASES = [
+    (2, 256, 4, 2, 64, True, None), (1, 128, 8, 8, 32, True, 64),
+    (2, 128, 4, 1, 64, False, None), (1, 256, 6, 2, 128, True, 96),
+    (1, 128, 4, 2, 64, True, None), (1, 512, 2, 2, 64, True, 128),
+    (1, 77, 32, 8, 128, True, None), (1, 1000, 32, 8, 128, True, None),
+    (2, 128, 32, 8, 128, True, None),
+    (1, 2048, 16, 8, 256, True, 1024), (1, 500, 16, 16, 80, False, None),
+    (2, 77, 4, 2, 8, True, None), (1, 65, 4, 4, 16, False, 7),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, Dh, causal,
+                                              win, dtype):
+    q = _randn((B, S, H, Dh), dtype, cuda, 8)
+    k = _randn((B, S, KV, Dh), dtype, cuda, 9)
+    v = _randn((B, S, KV, Dh), dtype, cuda, 10)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=win)
+    assert fa.launches == before + 1
+    tol = 5e-5 if dtype == "float32" else 2e-2
+    _close(got, attention_ref(q, k, v, causal=causal, window=win), tol, tol)
+
+
+def test_flash_attention_strided_and_deterministic(cuda):
+    """q/k/v as head-slices of one fused projection (strided rows)."""
+    qkv = _randn((2, 100, 12, 64), "float32", cuda, 11)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = fa.flash_attention(q, k, v)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    _close(got, attention_ref(q, k, v), 5e-5, 5e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-12b", "hubert-xlarge"])
+def test_transformer_on_card_matches_cpu(cuda, arch):
+    """The SMOKE model in fp32 on the card against the same params on the
+    CPU: forward, prefill and two decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.models import stacking, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    cpu = transformer.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(0)
+    if cfg.input_kind == "tokens":
+        x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 42)))
+    else:
+        x = torch.from_numpy(rng.normal(size=(2, 42, cfg.d_model))
+                             .astype(np.float32))
+    before = fa.launches
+    got = transformer.forward(cfg, dev, x[:, :40].to(cuda))
+    assert fa.launches == before + cfg.n_layers
+    _close(got.cpu(), transformer.forward(cfg, cpu, x[:, :40]), 1e-4,
+           1e-4)
+    lg_d, c_d = transformer.prefill(cfg, dev, x[:, :40].to(cuda), 48)
+    lg_c, c_c = transformer.prefill(cfg, cpu, x[:, :40], 48)
+    _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+    for t in (40, 41):
+        lg_d, c_d = transformer.decode_step(cfg, dev, c_d, x[:, t].to(cuda))
+        lg_c, c_c = transformer.decode_step(cfg, cpu, c_c, x[:, t])
+        _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)

@@ -28,7 +28,12 @@ COPIES = [
     "analysis/plan_analyzer.py", "soc/__init__.py", "soc/device.py",
     "soc/carfield.py", "soc/testbed.py", "models/__init__.py",
     "models/edge.py", "models/lm_graphs.py", "serve/admission.py",
-    "serve/compiler_thread.py",
+    "serve/compiler_thread.py", "configs/__init__.py", "configs/shapes.py",
+    "configs/gemma3_12b.py", "configs/granite_moe_3b_a800m.py",
+    "configs/hubert_xlarge.py", "configs/internlm2_1_8b.py",
+    "configs/llava_next_mistral_7b.py", "configs/olmoe_1b_7b.py",
+    "configs/qwen3_32b.py", "configs/qwen3_8b.py",
+    "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -72,6 +77,9 @@ import repro_torch.launch.serve
 import repro_torch.core.runtime
 import repro_torch.core.weights
 import repro_torch.analysis, repro_torch.core.codegen, repro_torch.core.heft
+import repro_torch.models.transformer, repro_torch.models.api
+import repro_torch.kernels.flash_attention.flash_attention
+import repro_torch.configs.registry
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 assert not bad, bad

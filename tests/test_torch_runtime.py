@@ -20,7 +20,7 @@ from repro.soc.carfield import carfield_patterns, carfield_soc
 from repro_torch.core import runtime as trt
 from repro_torch.core.api import compile_model as t_compile_model
 from repro_torch.core.api import compile_multi as t_compile_multi
-from repro_torch.core.weights import params_from_jax
+from repro_torch.core.weights import tree_from_jax
 from repro_torch.models import edge as tedge
 from repro_torch.soc.carfield import carfield_patterns as t_carfield_patterns
 from repro_torch.soc.carfield import carfield_soc as t_carfield_soc
@@ -42,10 +42,10 @@ def jax_vs_torch(g, plan):
     jparams = jrt.init_params(g, 0)
     jinputs = jrt.init_inputs(g, 1)
     want = jrt.execute_plan(plan, jinputs, jparams)
-    tparams = params_from_jax({k: np.asarray(v) for k, v in jparams.items()},
-                              device="cpu")
-    tinputs = params_from_jax({k: np.asarray(v) for k, v in jinputs.items()},
-                              device="cpu")
+    tparams = tree_from_jax({k: np.asarray(v) for k, v in jparams.items()},
+                            device="cpu")
+    tinputs = tree_from_jax({k: np.asarray(v) for k, v in jinputs.items()},
+                            device="cpu")
     got = trt.execute_plan(plan, tinputs, tparams)
     assert set(got) == set(want)
     for t in g.outputs:
@@ -66,7 +66,7 @@ def test_params_from_jax_round_trips():
     g = edge.transformer_block()
     jparams = jrt.init_params(g, 3)
     arrays = {k: np.asarray(v) for k, v in jparams.items()}
-    tparams = params_from_jax(arrays, device="cpu")
+    tparams = tree_from_jax(arrays, device="cpu")
     own = trt.init_params(g, 3, device="cpu")
     assert set(tparams) == set(arrays) == set(own)
     for k, a in arrays.items():
