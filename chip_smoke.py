@@ -6,12 +6,12 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-four phases; any mismatch raises, so the script exits non-zero:
+six phases; any mismatch raises, so the script exits non-zero:
 
-(a) kernels: the GEMM, RMSNorm and flash-attention kernels against their
-    plain torch versions on the card, at the serving paths' shapes, and
-    their times (cold L2) beside the plain version, the library call and
-    the bound;
+(a) kernels: the GEMM, RMSNorm, flash-attention, WKV6 and RG-LRU scan
+    kernels against their plain torch versions on the card, at the
+    serving paths' shapes, and their times (cold L2) beside the plain
+    version, the library call (none for the two scans) and the bound;
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -25,11 +25,24 @@ four phases; any mismatch raises, so the script exits non-zero:
     bf16, random weights from a seeded generator) prefills prompts of 77,
     256, 511 and 1000 tokens and a batch of 2 x 128, and greedily decodes
     8 tokens after each; the logits must be finite, flash attention must
-    launch once per layer per prefill and RMSNorm must launch.  Then
+    launch once per layer per prefill and RMSNorm once per norm of each
+    forward pass (prefill or decode step).  Then
     ``decode_step`` fed token S after ``prefill`` of S tokens is held to
     ``prefill`` of S + 1 tokens (the flash-attention path against the
     plain decode attention): in bf16 at full depth, and in fp32 on the
     first 4 layers at full width.
+(e) recurrent LM serving: rwkv6-3b at full width and depth
+    (configs/rwkv6_3b.py, bf16) serves prompts of 77, 256, 1000 and 4096
+    tokens and 2 x 128 as phase d does; WKV6 must launch once per layer
+    per prefill and RMSNorm once per norm of each forward pass.  Decode is
+    held to prefill at S = 77 and 1000 (the WKV6 kernel against the plain
+    single-token step), in bf16 at full depth and fp32 on 4 layers.
+(f) hybrid LM serving: recurrentgemma-2b at full width and depth
+    (configs/recurrentgemma_2b.py, bf16), the same prompts (4096 crosses
+    the 2048-token window); the RG-LRU scan must launch once per recurrent
+    layer (18) and flash attention once per attention layer (8) per
+    prefill.  Decode is held to prefill at S = 77 and 2100 (a rolled ring
+    cache), in bf16 at full depth and fp32 on 6 layers.
 
 Standard output: per-phase wall times, the card's name and power limit
 (the line of ``nvidia-smi --query-gpu=name,power.limit``), a
@@ -82,7 +95,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.rglru_scan import rglru_scan as scan
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
 
     t0 = time.perf_counter()
     _build.library()
@@ -94,14 +109,15 @@ def main() -> int:
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sweep, kernels = phase_kernels(torch, dev, mm, rms, fa)
+    sweep, kernels = phase_kernels(torch, dev, mm, rms, fa, wkv, scan)
     print(f"phase a kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     phase_plans(torch, dev)
     print(f"phase b plans: {time.perf_counter() - t0:.2f} s")
 
-    counted = {"matmul": mm, "rmsnorm": rms, "flash_attention": fa}
+    counted = {"matmul": mm, "rmsnorm": rms, "flash_attention": fa,
+               "wkv6": wkv, "rglru": scan}
     reset_launches(counted)
     t0 = time.perf_counter()
     served = phase_serve(torch, dev)
@@ -111,17 +127,20 @@ def main() -> int:
           f"requests served, launches {c_launches}, per request "
           f"{per_request}")
 
-    t0 = time.perf_counter()
-    d_launches = phase_lm(torch, dev, smi[0], counted)
-    print(f"phase d LM serving: {time.perf_counter() - t0:.2f} s, "
-          f"launches {d_launches}")
+    by_path = {"c": c_launches}
+    for phase, spec in LM_PHASES.items():
+        t0 = time.perf_counter()
+        by_path[phase] = phase_lm(torch, dev, smi[0], counted, spec)
+        print(f"phase {phase} LM serving ({spec['arch']}): "
+              f"{time.perf_counter() - t0:.2f} s, launches "
+              f"{by_path[phase]}")
     # each kernel's launches come from the serving path it lies on: K1 and
-    # K2 from phase c (the tiled runtime), K3 from phase d (the LM)
+    # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
+    # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b)
+    home = {"flash_attention": "d", "wkv6": "e", "rglru": "f"}
     for k in kernels:
-        path = d_launches if k["name"] == "flash_attention" else c_launches
-        k["launches"] = path[k["name"]]
-        k["launches_by_path"] = {"c": c_launches[k["name"]],
-                                 "d": d_launches[k["name"]]}
+        k["launches"] = by_path[home.get(k["name"], "c")][k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on its path")
 
@@ -187,16 +206,41 @@ ATTN_ROWS = [
     (2, 128, 32, 8, 128, True, None, "bfloat16", "qwen3-8b"),
     (1, 2048, 16, 8, 256, True, 1024, "bfloat16", "gemma3-12b local"),
     (1, 500, 16, 16, 80, False, None, "bfloat16", "hubert-xlarge"),
+    (1, 4096, 10, 1, 256, True, 2048, "bfloat16", "recurrentgemma-2b local"),
 ]
 # the row whose numbers stand for K3 in the kernels line
 ATTN_MAIN = (1, 1000, 32, 8, 128, True, None, "bfloat16", "qwen3-8b")
+# B, T, H, D, dtype, what: rwkv6-3b's serving shapes, then
+# tests/test_kernels.py's sweep
+WKV_ROWS = [
+    (1, 1000, 40, 64, "bfloat16", "rwkv6-3b"),
+    (1, 1000, 40, 64, "float32", "rwkv6-3b"),
+    (1, 77, 40, 64, "bfloat16", "rwkv6-3b"),
+    (2, 128, 40, 64, "bfloat16", "rwkv6-3b"),
+    (2, 128, 2, 32, "float32", "sweep"),
+    (1, 64, 4, 16, "float32", "sweep"),
+    (1, 96, 1, 64, "float32", "sweep"),
+]
+WKV_MAIN = WKV_ROWS[0]
+# B, T, D, dtype, what: recurrentgemma-2b's serving shapes, then the sweep
+RGLRU_ROWS = [
+    (1, 1000, 2560, "bfloat16", "recurrentgemma-2b"),
+    (1, 1000, 2560, "float32", "recurrentgemma-2b"),
+    (1, 77, 2560, "bfloat16", "recurrentgemma-2b"),
+    (2, 256, 384, "float32", "sweep"),
+    (1, 128, 64, "float32", "sweep"),
+    (3, 64, 96, "float32", "sweep"),
+]
+RGLRU_MAIN = RGLRU_ROWS[0]
 
 
-def phase_kernels(torch, dev, mm, rms, fa):
+def phase_kernels(torch, dev, mm, rms, fa, wkv, scan):
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                        attention_ref)
     from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     peaks = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
@@ -204,12 +248,19 @@ def phase_kernels(torch, dev, mm, rms, fa):
     sweep, entries = [], {}
 
     def record(kernel, case, dtype, got, want, tol, fns, flops, nbytes):
-        err = (got.float() - want.float()).abs().max().item()
-        lim = tol[0] + tol[1] * want.float().abs()
-        if not bool(((got.float() - want.float()).abs() <= lim).all()):
-            raise AssertionError(f"{kernel} {case} {names[dtype]}: max abs "
-                                 f"err {err} beyond atol {tol[0]} rtol "
-                                 f"{tol[1]}")
+        """``got``/``want`` are a tensor each, or tuples of tensors with
+        a tolerance each in ``tol``."""
+        if isinstance(got, torch.Tensor):
+            got, want, tol = (got,), (want,), (tol,)
+        err = 0.0
+        for g, w, (atol, rtol) in zip(got, want, tol):
+            diff = (g.float() - w.float()).abs()
+            e = diff.max().item() if diff.numel() else 0.0
+            err = max(err, e)
+            if not bool((diff <= atol + rtol * w.float().abs()).all()):
+                raise AssertionError(f"{kernel} {case} {names[dtype]}: max "
+                                     f"abs err {e} beyond atol {atol} "
+                                     f"rtol {rtol}")
         ms = {k: (time_ms(torch, f, flush) if f is not None else None)
               for k, f in fns.items()}
         b_ms, b_by = bound(flops, nbytes, peaks[dtype])
@@ -331,6 +382,53 @@ def phase_kernels(torch, dev, mm, rms, fa):
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
         if case == ATTN_MAIN:
             entries["flash_attention"] = row
+
+    # K4: y and S against the plain recurrence.  No single PyTorch call
+    # computes WKV6, so there is no library time.  The least work is
+    # 5 D^2 operations per (b, t, h): r.S (2 D^2) and S <- w S + k v
+    # (3 D^2); the bytes are r/k/v/w and u read, y and S written once.
+    for case in WKV_ROWS:
+        B, T, H, D, dt, what = case
+        dtype = dtypes[dt]
+        r, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(B, T, H, D, generator=gen,
+                                             device=dev) * 0.5)).to(dtype)
+        u = (torch.randn(H, D, generator=gen, device=dev) * 0.5).to(dtype)
+        y_tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        row = record(
+            "wkv6", f"{what} B{B} T{T} H{H} D{D}", dtype,
+            wkv.wkv6(r, k, v, w, u), wkv6_ref(r, k, v, w, u),
+            (y_tol, (1e-3, 1e-3)),
+            {"ms": lambda: wkv.wkv6(r, k, v, w, u),
+             "plain_ms": lambda: wkv6_ref(r, k, v, w, u),
+             "library_ms": None},
+            5.0 * B * T * H * D * D,
+            5 * r.numel() * r.element_size() + 4 * H * D + 4 * B * H * D * D)
+        row["library"] = "none: no PyTorch call computes WKV6"
+        if case == WKV_MAIN:
+            entries["wkv6"] = row
+
+    # K5: h and h_T against the plain scan (the kernel rounds as the plain
+    # version does: fp32 agrees to rounding, bf16 h to one bf16 rounding)
+    for case in RGLRU_ROWS:
+        B, T, D, dt, what = case
+        dtype = dtypes[dt]
+        a = (torch.sigmoid(torch.randn(B, T, D, generator=gen, device=dev))
+             * 0.98).to(dtype)
+        b = (torch.randn(B, T, D, generator=gen, device=dev) * 0.3).to(dtype)
+        h_tol = (1e-6, 1e-6) if dtype == torch.float32 else (1e-2, 1e-2)
+        row = record(
+            "rglru", f"{what} B{B} T{T} D{D}", dtype, scan.rglru(a, b),
+            rglru_ref(a, b), (h_tol, (1e-6, 1e-6)),
+            {"ms": lambda: scan.rglru(a, b),
+             "plain_ms": lambda: rglru_ref(a, b),
+             "library_ms": None},
+            2.0 * B * T * D,
+            3 * a.numel() * a.element_size() + 4 * B * D)
+        row["library"] = "none: no PyTorch call computes the linear scan"
+        if case == RGLRU_MAIN:
+            entries["rglru"] = row
     del flush
     torch.cuda.empty_cache()
 
@@ -342,6 +440,10 @@ def phase_kernels(torch, dev, mm, rms, fa):
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:78"),
+        "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv_scan/rwkv_scan.py:77"),
+        "rglru": ("src/repro_torch/csrc/rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan/rglru_scan.py:50"),
     }
     # "ms" and "kernel_ms" are the same measurement under the two names
     # that readers of this line look for
@@ -355,7 +457,8 @@ def phase_kernels(torch, dev, mm, rms, fa):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"library": r["library"]} if "library" in r else {})})
     return sweep, kernels
 
 
@@ -459,20 +562,39 @@ def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960) -> int:
     return rep["served"]
 
 
-# ---------------------------------------------------------------- phase d
+# ------------------------------------------------------- phases d, e, f
 
-LM_ARCH = "qwen3-8b"
-LM_PROMPTS = [(1, 77), (1, 256), (1, 511), (1, 1000), (2, 128)]   # (B, S)
 LM_DECODE = 8            # greedy tokens decoded after each prefill
-LM_CHECK_S = (77, 1000)  # prompt lengths of the decode-vs-prefill checks
-LM_FP32_LAYERS = 4       # depth of the float32 copy in those checks
+# one LM serving phase per family: the config, the prompts (B, S), the
+# prompt lengths of the decode-vs-prefill checks, the depth of their
+# float32 copy (whole repeating units), RMSNorm launches per forward pass
+# and the launches per prefill of the phase's scan/attention kernels
+LM_PHASES = {
+    "d": {"arch": "qwen3-8b",
+          "prompts": [(1, 77), (1, 256), (1, 511), (1, 1000), (2, 128)],
+          "check_s": (77, 1000), "fp32_layers": 4,
+          "norms_per_pass": 36 * 4 + 1,        # ln1, ln2, q/k-norm; ln_f
+          "per_prefill": {"flash_attention": 36}},
+    "e": {"arch": "rwkv6-3b",
+          "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
+          "check_s": (77, 1000), "fp32_layers": 4,
+          "norms_per_pass": 32 * 3 + 1,        # ln1, ln_x, ln2; ln_f
+          "per_prefill": {"wkv6": 32}},
+    "f": {"arch": "recurrentgemma-2b",
+          "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
+          "check_s": (77, 2100), "fp32_layers": 6,
+          "norms_per_pass": 26 * 2 + 1,        # ln/ln1, ln2; ln_f
+          "per_prefill": {"rglru": 18, "flash_attention": 8}},
+}
 # decode-vs-prefill tolerance, as the relative L2 error of the logits.
-# bf16, 36 layers: the two paths round activations to bf16 at different
-# places (prefill's GEMMs over S + 1 rows and flash attention, against
-# decode's single-row GEMMs and plain attention), each rounding worth
-# 2^-9 of a value; over 36 layers with random weights these add to a few
-# 1e-2 at most.  fp32, 4 layers, TF32 off: fp32 rounding (6e-8) over a
-# few thousand-term sums leaves ~1e-6, so 1e-3 is loose by design.
+# bf16, full depth: the two paths round activations to bf16 at different
+# places (prefill's GEMMs over S + 1 rows, flash attention and the scans'
+# inputs cast to bf16 -- the decay w of rwkv6, a and b of the RG-LRU --
+# against decode's single-row GEMMs, plain attention and fp32 scan
+# inputs), each rounding worth 2^-9 of a value; over 26-36 layers with
+# random weights these add to a few 1e-2 at most.  fp32, 4-6 layers, TF32
+# off: fp32 rounding (6e-8) over a few thousand-term sums leaves ~1e-6,
+# so 1e-3 is loose by design.
 LM_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 
 
@@ -492,10 +614,10 @@ def _teacher_forced(torch, model, cfg, params, x):
             bool((got.argmax(-1) == want.argmax(-1)).all()))
 
 
-def phase_lm(torch, dev, card, counted):
-    """Serve LM_ARCH at full width and depth, then the decode-vs-prefill
-    checks; returns each kernel's launches in the serving run
-    (``counted``: name -> kernel wrapper module)."""
+def phase_lm(torch, dev, card, counted, spec):
+    """Serve ``spec["arch"]`` at full width and depth, then the
+    decode-vs-prefill checks; returns each kernel's launches in the
+    serving run (``counted``: name -> kernel wrapper module)."""
     import dataclasses
 
     import numpy as np
@@ -504,21 +626,22 @@ def phase_lm(torch, dev, card, counted):
     from repro_torch.models import stacking
     from repro_torch.models.api import get_model
 
-    cfg = registry.get_config(LM_ARCH)
+    cfg = registry.get_config(spec["arch"])
+    prompts = spec["prompts"]
     model = get_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"lm: {cfg.name} (d {cfg.d_model}, {cfg.n_layers} layers, "
-          f"{cfg.n_heads}/{cfg.n_kv} heads, Dh {cfg.head_dim_}, vocab "
-          f"{cfg.vocab}, {cfg.dtype}): {n_params / 1e9:.3f} B params "
+    print(f"lm: {cfg.name} ({cfg.family}, d {cfg.d_model}, {cfg.n_layers} "
+          f"layers, {cfg.n_heads}/{cfg.n_kv} heads, Dh {cfg.head_dim_}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}): {n_params / 1e9:.3f} B params "
           f"({n_params * 2 / 1e9:.2f} GB) made in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab, bs)).to(dev)
-               for bs in LM_PROMPTS]
+               for bs in prompts]
 
     def serve(x):
         """prefill, then LM_DECODE greedy decode steps: (prefill s,
@@ -550,26 +673,28 @@ def phase_lm(torch, dev, card, counted):
     times = [serve(x) for x in batches]
     launches = read_launches(counted)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches["flash_attention"] != cfg.n_layers * len(batches):
-        raise AssertionError(f"flash attention launched "
-                             f"{launches['flash_attention']} times, not "
-                             f"{cfg.n_layers} x {len(batches)} prefills")
-    if launches["rmsnorm"] == 0:
-        raise AssertionError("rmsnorm never launched in LM serving")
-    for (B, S), (pre_s, dec_s, toks) in zip(LM_PROMPTS, times):
-        print(f"lm serve B{B} S{S}: prefill {pre_s * 1e3:.3f} ms, decode "
-              f"{dec_s * 1e3:.3f} ms/token ({B * LM_DECODE} tokens: "
-              f"{toks[0].tolist()}) [{card}]")
-    print(f"lm serve: peak memory {peak:.3f} GB [{card}]")
+    want = {name: n * len(batches) for name, n in spec["per_prefill"].items()}
+    want["rmsnorm"] = spec["norms_per_pass"] * len(batches) * (1 + LM_DECODE)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(
+                f"{cfg.name}: {name} launched {launches[name]} times, not "
+                f"{n} ({len(batches)} prefills, {LM_DECODE} decode steps "
+                f"each)")
+    for (B, S), (pre_s, dec_s, toks) in zip(prompts, times):
+        print(f"lm serve {cfg.name} B{B} S{S}: prefill {pre_s * 1e3:.3f} "
+              f"ms, decode {dec_s * 1e3:.3f} ms/token ({B * LM_DECODE} "
+              f"tokens: {toks[0].tolist()}) [{card}]")
+    print(f"lm serve {cfg.name}: peak memory {peak:.3f} GB [{card}]")
     print(json.dumps({"lm_serve": {
         "arch": cfg.name, "card": card, "peak_gb": peak,
         "prefill_ms": {f"B{B} S{S}": t[0] * 1e3
-                       for (B, S), t in zip(LM_PROMPTS, times)},
+                       for (B, S), t in zip(prompts, times)},
         "decode_ms_per_step": {f"B{B} S{S}": t[1] * 1e3
-                               for (B, S), t in zip(LM_PROMPTS, times)},
+                               for (B, S), t in zip(prompts, times)},
         "launches": launches}}))
 
-    i = max(range(len(LM_PROMPTS)), key=lambda j: LM_PROMPTS[j][1])
+    i = max(range(len(prompts)), key=lambda j: prompts[j][1])
     x = batches[i]
     _, cache = model.prefill(cfg, params, x, max_seq=x.shape[1] + 1)
     tok = x[:, -1]
@@ -582,45 +707,49 @@ def phase_lm(torch, dev, card, counted):
         share = ("not measured" if kernels == 0 else
                  f"{1 - busy / wall:.3f} (of the unprofiled "
                  f"{wall * 1e3:.3f} ms)")
-        print(f"lm profile {what} B{x.shape[0]} S{x.shape[1]}: "
+        print(f"lm profile {cfg.name} {what} B{x.shape[0]} S{x.shape[1]}: "
               f"{kernels} kernels, device busy {busy * 1e3:.3f} ms, "
               f"idle share {share} [{card}]; top kernels (ms) {top}")
     del cache
 
     results = []
-    for S in LM_CHECK_S:
+    for S in spec["check_s"]:
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg.dtype, cfg.n_layers, S,
                         _teacher_forced(torch, model, cfg, params, x)))
 
     # a float32 copy of the first layers, TF32 off; the bf16 model freed
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
-                                dtype="float32")
-    p32 = {"embed": params["embed"], "ln_f": params["ln_f"],
-           "head": params["head"], "tail": [],
-           "blocks": [stacking.tree_map(lambda t: t[:LM_FP32_LAYERS], s)
+    n32 = spec["fp32_layers"]
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype="float32")
+    p32 = {**{k: v for k, v in params.items() if k not in ("blocks",
+                                                          "tail")},
+           "tail": [],
+           "blocks": [stacking.tree_map(lambda t: t[:n32 // cfg.unit], s)
                       for s in params["blocks"]]}
     p32 = stacking.tree_map(lambda t: t.float(), p32)
     del params
     torch.cuda.empty_cache()
-    for S in LM_CHECK_S:
+    for S in spec["check_s"]:
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg32.dtype, cfg32.n_layers, S,
                         _teacher_forced(torch, model, cfg32, p32, x)))
     del p32
+    torch.cuda.empty_cache()
     failed = []
     for dtype, n_layers, S, (rel, err, scale, same) in results:
         ok = rel <= LM_TOL[dtype]
-        print(f"lm decode-vs-prefill {dtype} {n_layers} layers S{S}: "
-              f"relative L2 error {rel:.3e} (limit {LM_TOL[dtype]:.0e}), "
-              f"max abs error {err:.3e} of max |logit| {scale:.3f}, "
-              f"greedy token {'agrees' if same else 'differs'}"
+        print(f"lm decode-vs-prefill {cfg.name} {dtype} {n_layers} layers "
+              f"S{S}: relative L2 error {rel:.3e} (limit "
+              f"{LM_TOL[dtype]:.0e}), max abs error {err:.3e} of max "
+              f"|logit| {scale:.3f}, greedy token "
+              f"{'agrees' if same else 'differs'}"
               f"{'' if ok else '  FAILED'}")
         if not ok:
             failed.append((dtype, n_layers, S))
     if failed:
-        raise AssertionError(f"decode-vs-prefill beyond tolerance: {failed}")
+        raise AssertionError(f"{cfg.name} decode-vs-prefill beyond "
+                             f"tolerance: {failed}")
     return launches
 
 

@@ -10,8 +10,6 @@ from repro_torch.models.config import ModelConfig
 # (Queue 1) that ports it
 _TO_PORT = {
     "moe": "Queue 1 item 7 (models/moe.py)",
-    "ssm": "Queue 1 item 5 (models/rwkv6.py)",
-    "hybrid": "Queue 1 item 6 (models/rglru.py)",
 }
 
 
@@ -20,9 +18,11 @@ def get_model(cfg: ModelConfig) -> ModuleType:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP {_TO_PORT[cfg.family]})")
-    from repro_torch.models import transformer
+    from repro_torch.models import rglru, rwkv6, transformer
     return {
         "dense": transformer,
         "vlm": transformer,
         "audio": transformer,
+        "ssm": rwkv6,
+        "hybrid": rglru,
     }[cfg.family]

@@ -125,6 +125,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def ring_cache(k: torch.Tensor, v: torch.Tensor, Sl: int) -> Params:
+    """A prompt's k/v (B,S,KV,Dh) as a cache of Sl slots: the last
+    min(S, Sl) positions, each at slot ``position % Sl``."""
+    B, S = k.shape[:2]
+    take = min(S, Sl)
+    shift = (S - take) % Sl
+    ck = torch.zeros((B, Sl) + tuple(k.shape[2:]), dtype=k.dtype,
+                     device=k.device)
+    cv = torch.zeros_like(ck)
+    ck[:, :take] = k[:, S - take:]
+    cv[:, :take] = v[:, S - take:]
+    if shift:
+        ck = torch.roll(ck, shift, dims=1)
+        cv = torch.roll(cv, shift, dims=1)
+    return {"k": ck, "v": cv}
+
+
 def _ring(cfg: ModelConfig, u: int, Sl: int) -> bool:
     return cfg.layer_kind(u) == "local" and bool(cfg.window) \
         and Sl <= (cfg.window or 0)
@@ -181,18 +198,7 @@ def prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, max_seq: int
                               window=acfg.window)
         h = h + L.linear(blk["attn"]["wo"], ctx.reshape(B, S, -1))
         h = h + L.swiglu(blk["mlp"], L.rmsnorm(blk["ln2"], h))
-        Sl = cache_len(cfg, u, max_seq)
-        take = min(S, Sl)
-        shift = (S - take) % Sl       # ring slot = absolute pos % Sl
-        ck = torch.zeros((B, Sl, cfg.n_kv, cfg.head_dim_), dtype=k.dtype,
-                         device=k.device)
-        cv = torch.zeros_like(ck)
-        ck[:, :take] = k[:, S - take:]
-        cv[:, :take] = v[:, S - take:]
-        if shift:
-            ck = torch.roll(ck, shift, dims=1)
-            cv = torch.roll(cv, shift, dims=1)
-        return h, {"k": ck, "v": cv}
+        return h, ring_cache(k, v, cache_len(cfg, u, max_seq))
 
     h, slots, tail = ST.scan_blocks_collect(
         h, p["blocks"], p["tail"], body, cfg.unit, cfg.n_layers)

@@ -17,8 +17,12 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.rglru_scan import rglru_scan as scan
+from repro_torch.kernels.rglru_scan.ref import rglru_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -159,3 +163,152 @@ def test_transformer_on_card_matches_cpu(cuda, arch):
         lg_d, c_d = transformer.decode_step(cfg, dev, c_d, x[:, t].to(cuda))
         lg_c, c_c = transformer.decode_step(cfg, cpu, c_c, x[:, t])
         _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+
+
+# B, T, H, D: tests/test_kernels.py's sweep, rwkv6-3b's serving shapes,
+# then ragged T and the other head widths
+WKV_CASES = [
+    (2, 128, 2, 32), (1, 64, 4, 16), (1, 96, 1, 64),
+    (1, 77, 40, 64), (1, 1000, 40, 64), (2, 128, 40, 64),
+    (1, 33, 3, 128), (2, 5, 2, 16), (3, 1, 2, 32),
+]
+# y tolerance (the kernel and the plain version sum in other orders in
+# fp32; in bf16 one rounding of y may land an ulp apart), S tolerance
+WKV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}
+
+
+def _wkv_inputs(B, T, H, D, dtype, device, seed, layout="contiguous"):
+    """r, k, v, w (Finch decays) and u; ``layout`` "fused" gives r/k/v/w
+    as slices of one (B,T,H,4D) projection, "heads-major" as transposed
+    views of (B,H,T,D) tensors."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(4, B, T, H, D)).astype(np.float32)
+    x[3] = np.exp(-np.exp(x[3] * 0.5))
+    u = torch.from_numpy(rng.normal(size=(H, D)).astype(np.float32) * 0.5)
+    t = torch.from_numpy(x).to(device=device, dtype=DTYPES[dtype])
+    if layout == "fused":
+        fused = torch.cat(list(t), dim=-1)                # (B,T,H,4D)
+        rkvw = [fused[..., n * D:(n + 1) * D] for n in range(4)]
+    elif layout == "heads-major":
+        rkvw = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in t]
+    else:
+        rkvw = list(t)
+    return (*rkvw, u.to(device=device, dtype=DTYPES[dtype]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,D", WKV_CASES)
+def test_wkv6_kernel_matches_plain(cuda, B, T, H, D, dtype):
+    args = _wkv_inputs(B, T, H, D, dtype, cuda, 12)
+    before = wkv.launches
+    y, s = wkv.wkv6(*args)
+    assert wkv.launches == before + 1
+    y0, s0 = wkv6_ref(*args)
+    ty, ts = WKV_TOL[dtype]
+    _close(y, y0, ty, ty)
+    _close(s, s0, ts, ts)
+
+
+@pytest.mark.parametrize("layout", ["fused", "heads-major"])
+def test_wkv6_strided_and_deterministic(cuda, layout):
+    """r/k/v/w read through their strides, bitwise equal across calls."""
+    args = _wkv_inputs(2, 70, 5, 64, "float32", cuda, 13, layout)
+    assert args[0].stride(-1) == 1 and not args[0].is_contiguous()
+    y, s = wkv.wkv6(*args)
+    y2, s2 = wkv.wkv6(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    y0, s0 = wkv6_ref(*args)
+    _close(y, y0, 1e-4, 1e-4)
+    _close(s, s0, 1e-4, 1e-4)
+
+
+def test_wkv6_strong_decays_stay_finite(cuda):
+    """Decays down to 1e-4 (where the TPU's chunked form overflows)."""
+    r, k, v, _, u = _wkv_inputs(1, 256, 4, 64, "float32", cuda, 14)
+    w = torch.rand(r.shape, device=cuda) * 0.05 + 1e-4
+    y, s = wkv.wkv6(r, k, v, w, u)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    y0, s0 = wkv6_ref(r, k, v, w, u)
+    _close(y, y0, 1e-4, 1e-4)
+    _close(s, s0, 1e-4, 1e-4)
+
+
+# B, T, D: tests/test_kernels.py's sweep, recurrentgemma-2b's serving
+# shapes, then ragged T and D
+RGLRU_CASES = [
+    (2, 256, 384), (1, 128, 64), (3, 64, 96),
+    (1, 77, 2560), (1, 1000, 2560), (2, 128, 2560),
+    (1, 33, 50), (2, 1, 7),
+]
+
+
+def _rglru_inputs(B, T, D, dtype, device, seed, strided=False):
+    rng = np.random.default_rng(seed)
+    a = 0.98 / (1.0 + np.exp(-rng.normal(size=(B, T, D))))
+    b = rng.normal(size=(B, T, D)) * 0.3
+    ab = torch.from_numpy(np.concatenate([a, b], -1).astype(np.float32))
+    ab = ab.to(device=device, dtype=DTYPES[dtype])
+    if strided:                        # two halves of one (B,T,2D) tensor
+        return ab[..., :D], ab[..., D:]
+    return ab[..., :D].contiguous(), ab[..., D:].contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D", RGLRU_CASES)
+def test_rglru_kernel_matches_plain(cuda, B, T, D, dtype):
+    """The kernel rounds the product and the sum as the plain version
+    does, so the two agree to fp32 rounding (and to one bf16 rounding of
+    h); h_T is fp32 in both."""
+    a, b = _rglru_inputs(B, T, D, dtype, cuda, 15)
+    before = scan.launches
+    h, h_last = scan.rglru(a, b)
+    assert scan.launches == before + 1
+    h0, h_last0 = rglru_ref(a, b)
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    _close(h, h0, tol, tol)
+    _close(h_last, h_last0, 1e-6, 1e-6)
+
+
+def test_rglru_strided_and_deterministic(cuda):
+    a, b = _rglru_inputs(2, 300, 2560, "float32", cuda, 16, strided=True)
+    assert not a.is_contiguous()
+    h, h_last = scan.rglru(a, b)
+    h2, h_last2 = scan.rglru(a, b)
+    assert torch.equal(h, h2) and torch.equal(h_last, h_last2)
+    h0, h_last0 = rglru_ref(a, b)
+    _close(h, h0, 1e-6, 1e-6)
+    _close(h_last, h_last0, 1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_recurrent_lm_on_card_matches_cpu(cuda, arch):
+    """The SMOKE model in fp32 on the card against the same params on the
+    CPU: forward (each scan layer launches its kernel once), prefill past
+    the local window and two decode steps."""
+    from repro_torch.configs import registry
+    from repro_torch.models import stacking
+    from repro_torch.models.api import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    model = get_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                           (2, 42)))
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    counts = (wkv.launches, scan.launches, fa.launches)
+    got = model.forward(cfg, dev, x[:, :40].to(cuda))
+    assert (wkv.launches - counts[0], scan.launches - counts[1],
+            fa.launches - counts[2]) == (
+        cfg.n_layers if cfg.family == "ssm" else 0, kinds.count("rec"),
+        kinds.count("attn"))
+    _close(got.cpu(), model.forward(cfg, cpu, x[:, :40]), 1e-4, 1e-4)
+    lg_d, c_d = model.prefill(cfg, dev, x[:, :40].to(cuda), 48)
+    lg_c, c_c = model.prefill(cfg, cpu, x[:, :40], 48)
+    _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+    for t in (40, 41):
+        lg_d, c_d = model.decode_step(cfg, dev, c_d, x[:, t].to(cuda))
+        lg_c, c_c = model.decode_step(cfg, cpu, c_c, x[:, t])
+        _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+    stacking.tree_map(lambda a, b: _close(a.cpu(), b, 1e-4, 1e-4), c_d, c_c)

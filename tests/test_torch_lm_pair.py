@@ -4,8 +4,16 @@ the JAX ``init`` params carried over with
 ``repro_torch.core.weights.tree_from_jax``, the same numpy-seeded inputs
 to both, and ``forward`` logits, ``prefill`` logits and caches, and
 ``decode_step`` logits, caches and ``pos`` compared leaf by leaf.  The
-tests here show that the leaf-by-leaf comparison catches a difference."""
+tests here show that the leaf-by-leaf comparison catches a difference.
 
+``eager=True`` runs the JAX side op by op (``jax.disable_jit``), as the
+port runs: each op then rounds to its dtype where the port's op does.
+Compiled, XLA fuses bf16 elementwise chains and skips some of those
+roundings, so the JAX package's compiled and eager results differ by
+bf16 noise of their own (rwkv6-3b SMOKE, bf16, S = 64: up to 0.067 at
+one logit of 32768, CPU run)."""
+
+import contextlib
 import dataclasses
 
 import jax
@@ -52,8 +60,14 @@ def assert_trees_close(got, want, tol, what):
                                    err_msg=f"{what}{path}")
 
 
-def compare(arch, dtype, B=2, S=24, n_decode=3, max_seq=32, seed=0):
+def compare(arch, dtype, B=2, S=24, n_decode=3, max_seq=32, seed=0,
+            eager=False):
     """Port vs JAX package for one SMOKE config in ``dtype``."""
+    with jax.disable_jit() if eager else contextlib.nullcontext():
+        _compare(arch, dtype, B, S, n_decode, max_seq, seed)
+
+
+def _compare(arch, dtype, B, S, n_decode, max_seq, seed):
     cfg_j = dataclasses.replace(jreg.get_smoke_config(arch), dtype=dtype)
     cfg_t = dataclasses.replace(treg.get_smoke_config(arch), dtype=dtype)
     jm, tm = jax_model(cfg_j), torch_model(cfg_t)

@@ -1,6 +1,7 @@
 """The port's LM stack on its own: decode against forward (as
 tests/test_arch_smoke.py checks the JAX package), the family dispatch,
-the stacked param layout, and JAX pytrees carried over bitwise."""
+the stacked param layout, decoding from ``init_cache`` against JAX, and
+JAX pytrees carried over bitwise."""
 
 import dataclasses
 
@@ -11,15 +12,18 @@ import pytest
 import torch
 
 from repro.models import transformer as jtransformer
+from repro.models.api import get_model as jax_model
 from repro_torch.configs import registry
 from repro_torch.core.weights import tree_from_jax
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models import stacking as ST
 from repro_torch.models import transformer
 from repro_torch.models.api import get_model
 
 DECODE_ARCHS = [a for a in registry.ARCH_IDS
                 if registry.get_config(a).family in ("dense", "vlm",
-                                                     "audio")
+                                                     "audio", "ssm",
+                                                     "hybrid")
                 and registry.get_config(a).has_decode
                 and registry.get_config(a).input_kind == "tokens"]
 
@@ -63,11 +67,48 @@ def test_gemma3_ring_decode_past_the_window():
             torch.testing.assert_close(lg, full[:, t], atol=1e-4, rtol=1e-4)
 
 
+def test_rglru_ring_decode_past_the_window():
+    """recurrentgemma's local-attention layer keeps a window-sized ring
+    and its recurrent layers a conv history and h: decoding from a short
+    prompt to well past the window matches forward at every step
+    (fp32)."""
+    cfg = dataclasses.replace(registry.get_smoke_config("recurrentgemma-2b"),
+                              dtype="float32")
+    params = rglru.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    x = _tokens(cfg, 2, 40, seed=1)
+    full = rglru.forward(cfg, params, x)
+    _, cache = rglru.prefill(cfg, params, x[:, :10], max_seq=48)
+    assert cache["slots"][2]["k"].shape[2] == cfg.window      # a ring
+    for t in range(10, 40):
+        lg, cache = rglru.decode_step(cfg, params, cache, x[:, t])
+        if t + 1 < 40:
+            torch.testing.assert_close(lg, full[:, t], atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_long_decode_matches_forward():
+    """rwkv6's O(1) state carries the whole history: 30 decode steps after
+    a 10-token prompt match forward at every step (fp32)."""
+    cfg = dataclasses.replace(registry.get_smoke_config("rwkv6-3b"),
+                              dtype="float32")
+    params = rwkv6.init(torch.Generator().manual_seed(1), cfg, "cpu")
+    x = _tokens(cfg, 2, 40, seed=1)
+    full = rwkv6.forward(cfg, params, x)
+    _, cache = rwkv6.prefill(cfg, params, x[:, :10], max_seq=48)
+    for t in range(10, 40):
+        lg, cache = rwkv6.decode_step(cfg, params, cache, x[:, t])
+        if t + 1 < 40:
+            torch.testing.assert_close(lg, full[:, t], atol=1e-4, rtol=1e-4)
+
+
+FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
+                  "audio": transformer, "ssm": rwkv6, "hybrid": rglru}
+
+
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_family_dispatch(arch):
     cfg = registry.get_smoke_config(arch)
-    if cfg.family in ("dense", "vlm", "audio"):
-        assert get_model(cfg) is transformer
+    if cfg.family in FAMILY_MODULES:
+        assert get_model(cfg) is FAMILY_MODULES[cfg.family]
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(cfg)
@@ -98,12 +139,17 @@ def test_param_layout_matches_jax():
     """The port's ``init`` gives the JAX package's tree: same paths,
     shapes and dtypes, so the one carries over onto the other."""
     from repro.configs import registry as jreg
-    for arch in ("gemma3-12b", "hubert-xlarge"):
-        jcfg = jreg.get_smoke_config(arch)
+    for arch in ("gemma3-12b", "hubert-xlarge", "rwkv6-3b",
+                 "recurrentgemma-2b", "recurrentgemma-2b 4 layers"):
+        name, *rest = arch.split(" ")
+        # 4 layers of recurrentgemma: one stacked unit and a tail layer
+        n = {"n_layers": 4} if rest else {}
+        jcfg = dataclasses.replace(jreg.get_smoke_config(name), **n)
         jp = jax.tree.map(np.asarray,
-                          jtransformer.init(jax.random.PRNGKey(0), jcfg))
-        tp = transformer.init(torch.Generator().manual_seed(0),
-                              registry.get_smoke_config(arch), "cpu")
+                          jax_model(jcfg).init(jax.random.PRNGKey(0), jcfg))
+        cfg = dataclasses.replace(registry.get_smoke_config(name), **n)
+        tp = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
         carried = tree_from_jax(jp, device="cpu")
         flat_t = ST.tree_map(lambda t: (tuple(t.shape), t.dtype), tp)
         flat_c = ST.tree_map(lambda t: (tuple(t.shape), t.dtype), carried)
@@ -137,6 +183,34 @@ def test_decode_from_init_cache_matches_jax():
                                          torch.from_numpy(toks[:, t]))
         assert_trees_close(tl, jl, 1e-4, f"decode {t} logits")
     assert_trees_close(tc, jc, 1e-4, "cache after 6 steps")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_recurrent_decode_from_init_cache_matches_jax(arch):
+    """``init_cache`` gives the JAX package's state tree (rwkv6: fp32 WKV
+    states and shifts; recurrentgemma on 4 layers: fp32 h and conv
+    histories on the recurrent slots and the tail layer, a window ring on
+    the attention slot), and decoding from it matches JAX step by step,
+    the cache too (fp32)."""
+    from repro.configs import registry as jreg
+    from test_torch_lm_pair import assert_trees_close
+    n = {"n_layers": 4} if arch == "recurrentgemma-2b" else {}
+    jcfg = dataclasses.replace(jreg.get_smoke_config(arch), dtype="float32",
+                               **n)
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32", **n)
+    jm, tm = jax_model(jcfg), get_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(2), jcfg)
+    tp = tree_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jc = jm.init_cache(jcfg, 2, 24)
+    tc = tm.init_cache(cfg, 2, 24, device="cpu")
+    assert_trees_close(tc, jc, 0, "init_cache")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 20))
+    for t in range(20):
+        jl, jc = jm.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t]))
+        tl, tc = tm.decode_step(cfg, tp, tc, torch.from_numpy(toks[:, t]))
+        assert_trees_close(tl, jl, 1e-4, f"{arch} decode {t} logits")
+    assert_trees_close(tc, jc, 1e-4, f"{arch} cache after 20 steps")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

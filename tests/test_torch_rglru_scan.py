@@ -1,0 +1,99 @@
+"""The port's RG-LRU scan wrapper on CPU tensors (its plain version)
+against the JAX package: the Pallas kernel in interpret mode over the
+sweep of tests/test_kernels.py, and the JAX package's exact scan at
+ragged T, which the Pallas kernel cannot take.  Inputs are made with
+numpy from a seed and given to both packages."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rglru_scan.ref import rglru_ref as jax_ref
+from repro.kernels.rglru_scan.rglru_scan import rglru_pallas
+from repro_torch.kernels.rglru_scan import rglru_scan as tscan
+from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(seed, B, T, D, dtype="float32"):
+    """a = 0.98 * sigmoid(x) and b = 0.3 * x' (tests/test_kernels.py's
+    ranges) as (JAX array, CPU tensor) pairs of the same values."""
+    rng = np.random.default_rng(seed)
+    a = 0.98 / (1.0 + np.exp(-rng.normal(size=(B, T, D))))
+    b = rng.normal(size=(B, T, D)) * 0.3
+    out = []
+    for x in (a, b):
+        t = torch.from_numpy(x.astype(np.float32)).to(DTYPES[dtype][1])
+        out.append((jnp.asarray(t.float().numpy()).astype(DTYPES[dtype][0]),
+                    t))
+    return out
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+def _assert_close(got, want, tol, what):
+    for g, w, name in zip(got, want, ("h", "h_T")):
+        assert g.shape == tuple(w.shape), (what, name)
+        np.testing.assert_allclose(_np(g), _np(w), atol=tol, rtol=tol,
+                                   err_msg=f"{what} {name}")
+
+
+# B, T, D, chunk, block_d: tests/test_kernels.py's sweep
+SWEEP = [(2, 256, 384, 64, 128), (1, 128, 64, 32, 64), (3, 64, 96, 64, 32)]
+
+
+@pytest.mark.parametrize("B,T,D,chunk,bd", SWEEP)
+def test_rglru_matches_pallas(B, T, D, chunk, bd):
+    (ja, a), (jb, b) = _inputs(0, B, T, D)
+    want = rglru_pallas(ja, jb, chunk=chunk, block_d=bd, interpret=True)
+    before = tscan.launches
+    got = tscan.rglru(a, b)
+    assert tscan.launches == before        # CPU tensors: no kernel
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+    _assert_close(got, want, 1e-4, "pallas")
+
+
+# ragged T and D (the Pallas kernel asserts T % chunk == 0)
+@pytest.mark.parametrize("B,T,D", [(1, 77, 2560 // 8), (2, 33, 50),
+                                   (1, 1, 7)])
+def test_rglru_matches_jax_exact_scan(B, T, D):
+    (ja, a), (jb, b) = _inputs(1, B, T, D)
+    _assert_close(tscan.rglru(a, b), jax_ref(ja, jb), 1e-5, "exact")
+
+
+def test_rglru_bf16_inputs_match_jax():
+    """bf16 a/b: both scan in fp32 from the same bf16 values and round h
+    to bf16 once; h_T stays fp32."""
+    (ja, a), (jb, b) = _inputs(2, 2, 100, 64, "bfloat16")
+    got = tscan.rglru(a, b)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _assert_close(got, jax_ref(ja, jb), 1e-2, "bf16")
+
+
+def test_rglru_from_a_state_matches_jax():
+    (ja, a), (jb, b) = _inputs(3, 2, 9, 16)
+    h0 = np.random.default_rng(3).normal(size=(2, 16)).astype(np.float32)
+    _assert_close(rglru_ref(a, b, torch.from_numpy(h0)),
+                  jax_ref(ja, jb, jnp.asarray(h0)), 1e-5, "state")
+
+
+def _t(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("a,b,err", [
+    (_t(1, 4, 8), _t(1, 4, 8, dtype=torch.bfloat16), TypeError),
+    (_t(1, 4, 8), _t(1, 5, 8), ValueError),
+    (_t(4, 8), _t(4, 8), ValueError),
+    (_t(1, 4, 8, dtype=torch.float16), _t(1, 4, 8, dtype=torch.float16),
+     TypeError),
+])
+def test_rglru_rejects_unsupported(a, b, err):
+    with pytest.raises(err):
+        tscan.rglru(a, b)

@@ -1,0 +1,143 @@
+"""The port's WKV6 wrapper on CPU tensors (its plain version) against the
+JAX package: the Pallas kernel in interpret mode over the sweep of
+tests/test_kernels.py, and the JAX package's exact recurrence at a
+ragged T and at strong decays, which the Pallas kernel cannot take.  The
+range where the Pallas kernel's chunked rescaling leaves fp32 is kept as
+an expected failure of the reference.  Inputs are made with numpy from a
+seed and given to both packages."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rwkv_scan.ref import wkv6_ref as jax_ref
+from repro.kernels.rwkv_scan.rwkv_scan import wkv6_pallas
+from repro_torch.kernels.rwkv_scan import rwkv_scan as twkv
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(seed, B, T, H, D, dtype="float32", w=None):
+    """r, k, v, w (B,T,H,D) and u (H,D) as (JAX array, CPU tensor) pairs
+    of the same values.  The decay is Finch's exp(-exp(x / 2)) unless
+    ``w`` (a constant or a (lo, hi) uniform range) is given."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, T, H, D)) for _ in range(3))
+    if w is None:
+        wv = np.exp(-np.exp(rng.normal(size=(B, T, H, D)) * 0.5))
+    elif isinstance(w, tuple):
+        wv = rng.uniform(*w, size=(B, T, H, D))
+    else:
+        wv = np.full((B, T, H, D), w)
+    u = rng.normal(size=(H, D)) * 0.5
+    out = []
+    for x in (r, k, v, wv, u):
+        t = torch.from_numpy(x.astype(np.float32)).to(DTYPES[dtype][1])
+        out.append((jnp.asarray(t.float().numpy()).astype(DTYPES[dtype][0]),
+                    t))
+    return out
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+def _assert_close(got, want, tol, what):
+    for g, w, name in zip(got, want, ("y", "S")):
+        assert g.shape == tuple(w.shape), (what, name)
+        np.testing.assert_allclose(_np(g), _np(w), atol=tol, rtol=tol,
+                                   err_msg=f"{what} {name}")
+
+
+# B, T, H, D, chunk: tests/test_kernels.py's sweep
+SWEEP = [(2, 128, 2, 32, 32), (1, 64, 4, 16, 16), (1, 96, 1, 64, 32)]
+
+
+@pytest.mark.parametrize("B,T,H,D,chunk", SWEEP)
+def test_wkv6_matches_pallas(B, T, H, D, chunk):
+    (jr, r), (jk, k), (jv, v), (jw, w), (ju, u) = _inputs(0, B, T, H, D)
+    want = wkv6_pallas(jr, jk, jv, jw, ju, chunk=chunk, interpret=True)
+    before = twkv.launches
+    got = twkv.wkv6(r, k, v, w, u)
+    assert twkv.launches == before        # CPU tensors: no kernel
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+    _assert_close(got, want, 5e-3, "pallas")
+
+
+# the exact recurrence where the Pallas kernel cannot go: a ragged T (it
+# asserts T % chunk == 0) and decays of 0.05 and below
+@pytest.mark.parametrize("T,w", [(77, None), (77, 0.05), (64, 0.01),
+                                 (33, (1e-4, 0.05)), (1, None)])
+def test_wkv6_matches_jax_exact_recurrence(T, w):
+    (jr, r), (jk, k), (jv, v), (jw, wt), (ju, u) = _inputs(1, 2, T, 2, 32,
+                                                          w=w)
+    _assert_close(twkv.wkv6(r, k, v, wt, u), jax_ref(jr, jk, jv, jw, ju),
+                  1e-5, "exact")
+
+
+def test_wkv6_bf16_inputs_match_jax():
+    """bf16 r/k/v/w: both compute in fp32 from the same bf16 values and
+    round y to bf16 once (one bf16 ulp apart at most); S stays fp32."""
+    (jr, r), (jk, k), (jv, v), (jw, w), (ju, u) = _inputs(
+        2, 1, 40, 2, 64, "bfloat16")
+    got = twkv.wkv6(r, k, v, w, u)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _assert_close(got, jax_ref(jr, jk, jv, jw, ju), 1e-2, "bf16")
+
+
+def test_wkv6_from_a_state_matches_jax():
+    (jr, r), (jk, k), (jv, v), (jw, w), (ju, u) = _inputs(3, 2, 9, 2, 16)
+    s0 = np.random.default_rng(3).normal(size=(2, 2, 16, 16)) \
+        .astype(np.float32)
+    _assert_close(wkv6_ref(r, k, v, w, u, torch.from_numpy(s0)),
+                  jax_ref(jr, jk, jv, jw, ju, jnp.asarray(s0)), 1e-5,
+                  "state")
+
+
+@pytest.mark.parametrize("w", [0.5, 0.1])
+def test_pallas_in_range_for_mild_decays(w):
+    """Constant decays of 0.1 and above over 32-token chunks keep the
+    Pallas kernel's 1/A rescaling inside fp32 (the range table's finite
+    rows)."""
+    (jr, _), (jk, _), (jv, _), (jw, _), (ju, _) = _inputs(4, 1, 64, 2, 32,
+                                                          w=w)
+    got = wkv6_pallas(jr, jk, jv, jw, ju, interpret=True)
+    assert all(np.isfinite(_np(g)).all() for g in got)
+    _assert_close(got, jax_ref(jr, jk, jv, jw, ju), 5e-3, "pallas")
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "reference-side fault: wkv6_pallas divides k by the cumulative decay "
+    "exp(logA) of its 32-token chunk (src/repro/kernels/rwkv_scan/"
+    "rwkv_scan.py:48-53), which overflows fp32 once a chunk's summed "
+    "-log w passes ~88, i.e. w <= 0.05; the port's kernel steps the exact "
+    "recurrence instead"))
+@pytest.mark.parametrize("w", [0.05, 0.01])
+def test_pallas_overflows_for_strong_decays(w):
+    (jr, _), (jk, _), (jv, _), (jw, _), (ju, _) = _inputs(4, 1, 64, 2, 32,
+                                                          w=w)
+    got = wkv6_pallas(jr, jk, jv, jw, ju, interpret=True)
+    assert all(np.isfinite(_np(g)).all() for g in got)
+    _assert_close(got, jax_ref(jr, jk, jv, jw, ju), 5e-3, "pallas")
+
+
+def _t(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("args,err", [
+    ((_t(1, 4, 2, 24),) * 4 + (_t(2, 24),), ValueError),      # head width
+    ((_t(1, 4, 2, 16),) * 3 + (_t(1, 4, 2, 16, dtype=torch.bfloat16),
+                               _t(2, 16)), TypeError),          # mixed dtypes
+    ((_t(1, 4, 2, 16),) * 3 + (_t(1, 5, 2, 16), _t(2, 16)), ValueError),
+    ((_t(1, 4, 2, 16),) * 4 + (_t(1, 16),), ValueError),        # u shape
+    ((_t(4, 2, 16),) * 4 + (_t(2, 16),), ValueError),           # not 4-D
+    ((_t(1, 4, 2, 16, dtype=torch.float16),) * 4 + (_t(2, 16),), TypeError),
+])
+def test_wkv6_rejects_unsupported(args, err):
+    with pytest.raises(err):
+        twkv.wkv6(*args)
