@@ -6,12 +6,13 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-six phases; any mismatch raises, so the script exits non-zero:
+seven phases; any mismatch raises, so the script exits non-zero:
 
-(a) kernels: the GEMM, RMSNorm, flash-attention, WKV6 and RG-LRU scan
-    kernels against their plain torch versions on the card, at the
-    serving paths' shapes, and their times (cold L2) beside the plain
-    version, the library call (none for the two scans) and the bound;
+(a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
+    grouped-matmul kernels against their plain torch versions on the
+    card, at the serving paths' shapes, and their times (cold L2) beside
+    the plain version, the library call (none for the two scans) and the
+    bound;
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -43,6 +44,18 @@ six phases; any mismatch raises, so the script exits non-zero:
     layer (18) and flash attention once per attention layer (8) per
     prefill.  Decode is held to prefill at S = 77 and 2100 (a rolled ring
     cache), in bf16 at full depth and fp32 on 6 layers.
+(g) MoE LM serving: olmoe-1b-7b at full width and depth
+    (configs/olmoe_1b_7b.py, bf16: 64 experts, top-8), phase e's prompts
+    (4096 tokens dispatch 648 rows per expert, which the TPU kernel's
+    128-row block cannot take); the grouped matmul must launch three times
+    per layer (48) in every forward pass, prefill or decode step, and
+    flash attention once per layer per prefill.  Decode is held to
+    prefill at S = 77 and 1000 with the capacity factor raised to
+    n_experts / top_k (so that no assignment drops in either), in bf16 at
+    full depth and fp32 on 4 layers.
+
+Every LM phase also runs its longest prompt's prefill twice and requires
+the same bits from both.
 
 Standard output: per-phase wall times, the card's name and power limit
 (the line of ``nvidia-smi --query-gpu=name,power.limit``), a
@@ -94,6 +107,7 @@ def main() -> int:
     from repro_torch.core import runtime  # noqa: F401  (fp32 backend flags)
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.rglru_scan import rglru_scan as scan
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
@@ -109,7 +123,7 @@ def main() -> int:
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sweep, kernels = phase_kernels(torch, dev, mm, rms, fa, wkv, scan)
+    sweep, kernels = phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm)
     print(f"phase a kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -117,7 +131,7 @@ def main() -> int:
     print(f"phase b plans: {time.perf_counter() - t0:.2f} s")
 
     counted = {"matmul": mm, "rmsnorm": rms, "flash_attention": fa,
-               "wkv6": wkv, "rglru": scan}
+               "wkv6": wkv, "rglru": scan, "grouped_matmul": gm}
     reset_launches(counted)
     t0 = time.perf_counter()
     served = phase_serve(torch, dev)
@@ -136,8 +150,10 @@ def main() -> int:
               f"{by_path[phase]}")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
-    # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b)
-    home = {"flash_attention": "d", "wkv6": "e", "rglru": "f"}
+    # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
+    # from phase g (olmoe-1b-7b)
+    home = {"flash_attention": "d", "wkv6": "e", "rglru": "f",
+            "grouped_matmul": "g"}
     for k in kernels:
         k["launches"] = by_path[home.get(k["name"], "c")][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
@@ -232,11 +248,29 @@ RGLRU_ROWS = [
     (3, 64, 96, "float32", "sweep"),
 ]
 RGLRU_MAIN = RGLRU_ROWS[0]
+# E, C, D, F, dtype, what: olmoe-1b-7b's gate/up and down GEMMs at a
+# 1000-token prefill (C = 160), decode (C = 8) and a 4096-token prefill
+# (C = 648), granite-moe-3b-a800m at 1000 tokens, then ragged C, D, F
+GMM_ROWS = [
+    (64, 160, 2048, 1024, "bfloat16", "olmoe-1b-7b S1000 gate"),
+    (64, 160, 1024, 2048, "bfloat16", "olmoe-1b-7b S1000 down"),
+    (64, 160, 2048, 1024, "float32", "olmoe-1b-7b S1000 gate"),
+    (64, 8, 2048, 1024, "bfloat16", "olmoe-1b-7b decode gate"),
+    # the two tiles at the row count where the kernel switches: C = 16
+    # (S 77) takes the 16-row tile, C = 17 the 64-row one
+    (64, 16, 2048, 1024, "bfloat16", "olmoe-1b-7b S77 gate"),
+    (64, 17, 2048, 1024, "bfloat16", "C 17"),
+    (64, 648, 2048, 1024, "bfloat16", "olmoe-1b-7b S4096 gate"),
+    (40, 256, 1536, 512, "bfloat16", "granite-moe-3b-a800m S1000 gate"),
+    (40, 104, 1000, 200, "bfloat16", "ragged"),
+]
+GMM_MAIN = GMM_ROWS[0]
 
 
-def phase_kernels(torch, dev, mm, rms, fa, wkv, scan):
+def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                        attention_ref)
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -429,6 +463,26 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan):
         row["library"] = "none: no PyTorch call computes the linear scan"
         if case == RGLRU_MAIN:
             entries["rglru"] = row
+
+    # K6: the MoE layer's per-expert GEMMs; the library call is torch.bmm
+    # on the same operands (cuBLAS, tensor cores in bf16)
+    for case in GMM_ROWS:
+        E, C, D, F, dt, what = case
+        dtype = dtypes[dt]
+        x = torch.randn(E, C, D, generator=gen, device=dev).to(dtype)
+        w = torch.randn(E, D, F, generator=gen, device=dev).to(dtype)
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        row = record(
+            "grouped_matmul", f"{what} ({E},{C},{D})x({E},{D},{F})", dtype,
+            gm.grouped_matmul(x, w), grouped_matmul_ref(x, w),
+            (tol * math.sqrt(D), tol),
+            {"ms": lambda: gm.grouped_matmul(x, w),
+             "plain_ms": lambda: grouped_matmul_ref(x, w),
+             "library_ms": lambda: torch.bmm(x, w)},
+            2.0 * E * C * D * F,
+            (E * C * D + E * D * F + E * C * F) * x.element_size())
+        if case == GMM_MAIN:
+            entries["grouped_matmul"] = row
     del flush
     torch.cuda.empty_cache()
 
@@ -444,6 +498,9 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan):
                  "src/repro/kernels/rwkv_scan/rwkv_scan.py:77"),
         "rglru": ("src/repro_torch/csrc/rglru_scan.cu",
                   "src/repro/kernels/rglru_scan/rglru_scan.py:50"),
+        "grouped_matmul": (
+            "src/repro_torch/csrc/grouped_matmul.cu",
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:36"),
     }
     # "ms" and "kernel_ms" are the same measurement under the two names
     # that readers of this line look for
@@ -562,13 +619,14 @@ def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960) -> int:
     return rep["served"]
 
 
-# ------------------------------------------------------- phases d, e, f
+# ---------------------------------------------------- phases d, e, f, g
 
 LM_DECODE = 8            # greedy tokens decoded after each prefill
 # one LM serving phase per family: the config, the prompts (B, S), the
 # prompt lengths of the decode-vs-prefill checks, the depth of their
-# float32 copy (whole repeating units), RMSNorm launches per forward pass
-# and the launches per prefill of the phase's scan/attention kernels
+# float32 copy (whole repeating units), RMSNorm launches per forward pass,
+# the launches per prefill of the phase's scan/attention kernels and the
+# launches per forward pass (prefill or decode step) of the others
 LM_PHASES = {
     "d": {"arch": "qwen3-8b",
           "prompts": [(1, 77), (1, 256), (1, 511), (1, 1000), (2, 128)],
@@ -585,6 +643,12 @@ LM_PHASES = {
           "check_s": (77, 2100), "fp32_layers": 6,
           "norms_per_pass": 26 * 2 + 1,        # ln/ln1, ln2; ln_f
           "per_prefill": {"rglru": 18, "flash_attention": 8}},
+    "g": {"arch": "olmoe-1b-7b",
+          "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
+          "check_s": (77, 1000), "fp32_layers": 4,
+          "norms_per_pass": 16 * 2 + 1,        # ln1, ln2; ln_f
+          "per_prefill": {"flash_attention": 16},
+          "per_pass": {"grouped_matmul": 16 * 3}},   # gate, up, down
 }
 # decode-vs-prefill tolerance, as the relative L2 error of the logits.
 # bf16, full depth: the two paths round activations to bf16 at different
@@ -598,20 +662,80 @@ LM_PHASES = {
 LM_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 
 
+class _Routing:
+    """Within ``with``: records, per MoE layer, the experts that
+    ``model._top_k`` picks for the last position; with ``pinned`` (such a
+    record) layer n takes ``pinned[n]``'s experts instead, each weighted
+    by the probability this run gives it."""
+
+    def __init__(self, model, pinned=None):
+        self.model, self.pinned, self.picked = model, pinned, []
+
+    def __enter__(self):
+        self.orig = top_k = self.model._top_k
+
+        def wrapped(probs, K):
+            vals, idx = top_k(probs, K)
+            if self.pinned is not None:
+                idx = idx.clone()
+                idx[:, -1] = self.pinned[len(self.picked)]
+                vals = probs.gather(-1, idx)
+            self.picked.append(idx[:, -1].clone())
+            return vals, idx
+        self.model._top_k = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.model._top_k = self.orig
+
+
 def _teacher_forced(torch, model, cfg, params, x):
     """``decode_step`` fed x[:, S] after ``prefill(x[:, :S])`` against the
-    last logits of ``prefill(x[:, :S + 1])``: (relative L2 error, max abs
-    error, max |logit|, greedy tokens agree)."""
+    last logits of ``prefill(x[:, :S + 1])``: relative L2 error, max abs
+    error, max |logit|, whether the greedy tokens agree.
+
+    MoE: routing is a discrete choice, so rounding noise between the two
+    paths can swap an expert where two router probabilities are (near)
+    equal, as bf16 router logits often make them.  The layers where the
+    token's experts differ are counted (``flips``); where there are any,
+    decode runs again with prefill's experts pinned, and the check holds
+    that run (``pinned_rel``): the same arithmetic, without the swap."""
+    import contextlib
     S = x.shape[1] - 1
-    want, _ = model.prefill(cfg, params, x, max_seq=S + 1)
-    _, cache = model.prefill(cfg, params, x[:, :S], max_seq=S + 1)
-    got, _ = model.decode_step(cfg, params, cache, x[:, S])
-    if not bool(torch.isfinite(got).all() and torch.isfinite(want).all()):
+    moe = hasattr(model, "_top_k")
+
+    def routing(pinned=None):
+        return (_Routing(model, pinned) if moe else
+                contextlib.nullcontext())
+
+    def decode(pinned=None):
+        _, cache = model.prefill(cfg, params, x[:, :S], max_seq=S + 1)
+        with routing(pinned) as r:
+            got, _ = model.decode_step(cfg, params, cache, x[:, S])
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("non-finite logits in the decode check")
+        return got, r
+
+    with routing() as want_r:
+        want, _ = model.prefill(cfg, params, x, max_seq=S + 1)
+    if not bool(torch.isfinite(want).all()):
         raise AssertionError("non-finite logits in the decode check")
+    got, got_r = decode()
+
+    def rel(got):
+        return ((got - want).float().norm() / want.float().norm()).item()
+
     d = (got - want).float()
-    return ((d.norm() / want.float().norm()).item(), d.abs().max().item(),
-            want.abs().max().item(),
-            bool((got.argmax(-1) == want.argmax(-1)).all()))
+    out = {"rel": rel(got), "err": d.abs().max().item(),
+           "scale": want.abs().max().item(),
+           "same": bool((got.argmax(-1) == want.argmax(-1)).all())}
+    if moe:
+        out["flips"] = sum(
+            not torch.equal(a.sort(-1).values, b.sort(-1).values)
+            for a, b in zip(want_r.picked, got_r.picked))
+        if out["flips"]:
+            out["pinned_rel"] = rel(decode(want_r.picked)[0])
+    return out
 
 
 def phase_lm(torch, dev, card, counted, spec):
@@ -673,8 +797,11 @@ def phase_lm(torch, dev, card, counted, spec):
     times = [serve(x) for x in batches]
     launches = read_launches(counted)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    passes = len(batches) * (1 + LM_DECODE)
     want = {name: n * len(batches) for name, n in spec["per_prefill"].items()}
-    want["rmsnorm"] = spec["norms_per_pass"] * len(batches) * (1 + LM_DECODE)
+    want.update({name: n * passes
+                 for name, n in spec.get("per_pass", {}).items()})
+    want["rmsnorm"] = spec["norms_per_pass"] * passes
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(
@@ -696,7 +823,18 @@ def phase_lm(torch, dev, card, counted, spec):
 
     i = max(range(len(prompts)), key=lambda j: prompts[j][1])
     x = batches[i]
-    _, cache = model.prefill(cfg, params, x, max_seq=x.shape[1] + 1)
+    first, second = (model.prefill(cfg, params, x, max_seq=x.shape[1] + 1)
+                     for _ in range(2))
+    same = [bool(torch.equal(a, b))
+            for a, b in zip(_leaves(first), _leaves(second))]
+    if not all(same):
+        raise AssertionError(f"{cfg.name}: two prefills of S{x.shape[1]} "
+                             f"differ in {same.count(False)} of {len(same)} "
+                             f"tensors")
+    print(f"lm prefill {cfg.name} B{x.shape[0]} S{x.shape[1]}: two runs "
+          f"bitwise equal ({len(same)} tensors: logits and cache)")
+    cache = second[1]
+    del first, second
     tok = x[:, -1]
     for what, fn, wall in (
             ("prefill", lambda: model.prefill(
@@ -712,6 +850,14 @@ def phase_lm(torch, dev, card, counted, spec):
               f"idle share {share} [{card}]; top kernels (ms) {top}")
     del cache
 
+    # MoE: capacity for every token in both paths, so that prefill of
+    # S + 1 tokens drops no assignment that decode keeps (at the default
+    # factor the last token is the first to drop); restored below
+    factor = getattr(model, "CAPACITY_FACTOR", None)
+    if factor is not None:
+        model.CAPACITY_FACTOR = cfg.n_experts / cfg.top_k
+        print(f"lm decode-vs-prefill {cfg.name}: capacity factor "
+              f"{model.CAPACITY_FACTOR} (serving used {factor})")
     results = []
     for S in spec["check_s"]:
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
@@ -734,16 +880,24 @@ def phase_lm(torch, dev, card, counted, spec):
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg32.dtype, cfg32.n_layers, S,
                         _teacher_forced(torch, model, cfg32, p32, x)))
+    if factor is not None:
+        model.CAPACITY_FACTOR = factor
     del p32
     torch.cuda.empty_cache()
     failed = []
-    for dtype, n_layers, S, (rel, err, scale, same) in results:
-        ok = rel <= LM_TOL[dtype]
+    for dtype, n_layers, S, r in results:
+        held = r.get("pinned_rel", r["rel"])
+        ok = held <= LM_TOL[dtype]
+        routed = ("" if "flips" not in r else
+                  f", the token's experts differ from prefill's in "
+                  f"{r['flips']} of {n_layers} layers" + (
+                      f" (with prefill's pinned: relative L2 error "
+                      f"{r['pinned_rel']:.3e})" if r["flips"] else ""))
         print(f"lm decode-vs-prefill {cfg.name} {dtype} {n_layers} layers "
-              f"S{S}: relative L2 error {rel:.3e} (limit "
-              f"{LM_TOL[dtype]:.0e}), max abs error {err:.3e} of max "
-              f"|logit| {scale:.3f}, greedy token "
-              f"{'agrees' if same else 'differs'}"
+              f"S{S}: relative L2 error {r['rel']:.3e} (limit "
+              f"{LM_TOL[dtype]:.0e}), max abs error {r['err']:.3e} of max "
+              f"|logit| {r['scale']:.3f}, greedy token "
+              f"{'agrees' if r['same'] else 'differs'}{routed}"
               f"{'' if ok else '  FAILED'}")
         if not ok:
             failed.append((dtype, n_layers, S))

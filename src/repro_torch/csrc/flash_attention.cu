@@ -37,7 +37,7 @@
 // contiguous), so the projections' (B,S,H,Dh) outputs go in without a
 // transposed copy.  Every sum runs in a fixed order (no split over keys,
 // no atomics), so results are deterministic.  Dh is a template parameter
-// (8, 16, 32, 64, 80, 128, 256); above 48 KB the shared tiles are
+// (8, 12, 16, 32, 64, 80, 128, 256); above 48 KB the shared tiles are
 // dynamic shared memory (Dh 256 takes 210 KB, one block per SM).
 
 #include <cuda_bf16.h>
@@ -312,6 +312,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 8: return launch_dh<T, 8>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+    case 12: return launch_dh<T, 12>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
     case 16: return launch_dh<T, 16>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
     case 32: return launch_dh<T, 32>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
     case 64: return launch_dh<T, 64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);

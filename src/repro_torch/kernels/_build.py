@@ -56,6 +56,11 @@ SIGNATURES = {
     "repro_rglru_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _P],
     "repro_rglru_bf16": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
                          _P],
+    # x, w, out, E, C, D, F, x's (expert, row, column) strides, w's, stream
+    "repro_grouped_matmul_f32": [_P, _P, _P, _I, _I, _I, _I,
+                                 _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    "repro_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I,
+                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],
 }
 
 _lock = threading.Lock()

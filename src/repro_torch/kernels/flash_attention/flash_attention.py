@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_chunked,
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)   # the kernel's Dh instances
+HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the kernel's Dh instances
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
 # beyond which the exact O(S^2) plain version gives way to the chunked one
 CHUNKED_THRESHOLD = 1024

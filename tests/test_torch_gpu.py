@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.grouped_matmul import grouped_matmul as gmm
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rglru_scan import rglru_scan as scan
@@ -108,6 +110,7 @@ ATTN_CASES = [
     (2, 128, 32, 8, 128, True, None),
     (1, 2048, 16, 8, 256, True, 1024), (1, 500, 16, 16, 80, False, None),
     (2, 77, 4, 2, 8, True, None), (1, 65, 4, 4, 16, False, 7),
+    (2, 40, 4, 2, 12, True, None),       # granite-moe SMOKE's head width
 ]
 
 
@@ -312,3 +315,118 @@ def test_recurrent_lm_on_card_matches_cpu(cuda, arch):
         lg_c, c_c = model.decode_step(cfg, cpu, c_c, x[:, t])
         _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
     stacking.tree_map(lambda a, b: _close(a.cpu(), b, 1e-4, 1e-4), c_d, c_c)
+
+
+# E, C, D, F: olmoe-1b-7b decode (C = 8) and prefill of 1000 tokens (gate
+# and down, C = 160) and of 4096 (C = 648), granite-moe-3b-a800m at 1000
+# tokens, the SMOKE widths, then ragged C, D and F (no multiple of a tile)
+GMM_CASES = [
+    (64, 8, 2048, 1024), (64, 160, 2048, 1024), (64, 160, 1024, 2048),
+    (64, 648, 2048, 1024), (40, 256, 1536, 512), (5, 16, 48, 32),
+    (5, 40, 33, 65), (40, 17, 100, 7),
+]
+
+
+def _gmm_close(got, want, D, dtype):
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    _close(got, want, tol * math.sqrt(D), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F", GMM_CASES)
+def test_grouped_matmul_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    x = _randn((E, C, D), dtype, cuda, 17)
+    w = _randn((E, D, F), dtype, cuda, 18)
+    before = gmm.launches
+    got = gmm.grouped_matmul(x, w)
+    assert gmm.launches == before + 1
+    _gmm_close(got, grouped_matmul_ref(x, w), D, dtype)
+
+
+@pytest.mark.parametrize("layout", ["expert-strided", "transposed",
+                                    "column-slice w"])
+def test_grouped_matmul_strided_and_deterministic(cuda, layout):
+    """x and w read through their strides (x one of two row blocks per
+    expert, or a transposed view; w a column slice of a wider weight),
+    bitwise equal across calls."""
+    E, C, D, F = 40, 24, 96, 72
+    x = _randn((E, C, D), "float32", cuda, 19)
+    w = _randn((E, D, F), "float32", cuda, 20)
+    if layout == "expert-strided":
+        x = _randn((E, 2, C, D), "float32", cuda, 19)[:, 1]
+    elif layout == "transposed":
+        x = _randn((E, D, C), "float32", cuda, 19).transpose(1, 2)
+    else:
+        w = _randn((E, D, F + 16), "float32", cuda, 20)[:, :, 8:8 + F]
+    assert not (x.is_contiguous() and w.is_contiguous())
+    got = gmm.grouped_matmul(x, w)
+    assert torch.equal(got, gmm.grouped_matmul(x, w))
+    _gmm_close(got, grouped_matmul_ref(x.contiguous(), w.contiguous()), D,
+               "float32")
+
+
+def _moe_smoke(arch, dtype):
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(registry.get_smoke_config(arch), dtype=dtype)
+    cpu = moe.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    return cfg, cpu, moe
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_on_card_matches_cpu(cuda, arch):
+    """The SMOKE model in fp32 on the card against the same params on the
+    CPU: forward (three grouped-matmul launches per layer), prefill and
+    two decode steps, the caches too."""
+    from repro_torch.models import stacking
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, moe = _moe_smoke(arch, "float32")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                           (2, 42)))
+    before = gmm.launches
+    got = moe.forward(cfg, dev, x[:, :40].to(cuda))
+    assert gmm.launches == before + 3 * cfg.n_layers
+    _close(got.cpu(), moe.forward(cfg, cpu, x[:, :40]), 1e-4, 1e-4)
+    lg_d, c_d = moe.prefill(cfg, dev, x[:, :40].to(cuda), 48)
+    lg_c, c_c = moe.prefill(cfg, cpu, x[:, :40], 48)
+    _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+    for t in (40, 41):
+        lg_d, c_d = moe.decode_step(cfg, dev, c_d, x[:, t].to(cuda))
+        lg_c, c_c = moe.decode_step(cfg, cpu, c_c, x[:, t])
+        _close(lg_d.cpu(), lg_c, 1e-4, 1e-4)
+    stacking.tree_map(lambda a, b: _close(a.cpu(), b, 1e-4, 1e-4), c_d, c_c)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_prefill_is_bitwise_repeatable(cuda, arch):
+    """bf16, the routing's ties and the combine included: one prefill
+    gives the same bits twice."""
+    from repro_torch.models import stacking
+    cfg, cpu, moe = _moe_smoke(arch, "bfloat16")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab,
+                                                           (2, 100))).to(cuda)
+    first = moe.prefill(cfg, dev, x, 104)
+    again = moe.prefill(cfg, dev, x, 104)
+    same = stacking.tree_map(lambda a, b: bool(torch.equal(a, b)), first,
+                             again)
+    assert same == stacking.tree_map(lambda _: True, first)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_decode_matches_forward_on_card(cuda, arch, monkeypatch):
+    """With the capacity raised so nothing drops, decode after prefill
+    equals forward at every step (fp32, TF32 off)."""
+    from repro_torch.models import stacking
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, moe = _moe_smoke(arch, "float32")
+    monkeypatch.setattr(moe, "CAPACITY_FACTOR", float(cfg.n_experts))
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 30))).to(cuda)
+    full = moe.forward(cfg, dev, x)
+    _, cache = moe.prefill(cfg, dev, x[:, :10], max_seq=32)
+    for t in range(10, 29):
+        lg, cache = moe.decode_step(cfg, dev, cache, x[:, t])
+        _close(lg, full[:, t], 1e-4, 1e-4)

@@ -79,9 +79,11 @@ import repro_torch.core.weights
 import repro_torch.analysis, repro_torch.core.codegen, repro_torch.core.heft
 import repro_torch.models.transformer, repro_torch.models.api
 import repro_torch.models.rwkv6, repro_torch.models.rglru
+import repro_torch.models.moe, repro_torch.core.hints
 import repro_torch.kernels.flash_attention.flash_attention
 import repro_torch.kernels.rwkv_scan.rwkv_scan
 import repro_torch.kernels.rglru_scan.rglru_scan
+import repro_torch.kernels.grouped_matmul.grouped_matmul
 import repro_torch.configs.registry
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))

@@ -15,16 +15,13 @@ from repro.models import transformer as jtransformer
 from repro.models.api import get_model as jax_model
 from repro_torch.configs import registry
 from repro_torch.core.weights import tree_from_jax
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models import stacking as ST
 from repro_torch.models import transformer
 from repro_torch.models.api import get_model
 
 DECODE_ARCHS = [a for a in registry.ARCH_IDS
-                if registry.get_config(a).family in ("dense", "vlm",
-                                                     "audio", "ssm",
-                                                     "hybrid")
-                and registry.get_config(a).has_decode
+                if registry.get_config(a).has_decode
                 and registry.get_config(a).input_kind == "tokens"]
 
 
@@ -34,10 +31,15 @@ def _tokens(cfg, B, S, seed=0):
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
-def test_decode_matches_forward(arch):
+def test_decode_matches_forward(arch, monkeypatch):
     """decode_step at position S equals forward on the extended sequence
-    (bf16 params, the tolerance of tests/test_arch_smoke.py)."""
+    (bf16 params, the tolerance of tests/test_arch_smoke.py).  For the
+    MoE family the capacity factor is raised so that no assignment drops,
+    as tests/test_arch_smoke.py does: the forward pass drops assignments
+    past capacity, the single-token decode step never does."""
     cfg = registry.get_smoke_config(arch)
+    if cfg.family == "moe":
+        monkeypatch.setattr(moe, "CAPACITY_FACTOR", float(cfg.n_experts))
     model = get_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
     B, S = 2, 24
@@ -101,17 +103,15 @@ def test_rwkv6_long_decode_matches_forward():
 
 
 FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
-                  "audio": transformer, "ssm": rwkv6, "hybrid": rglru}
+                  "audio": transformer, "moe": moe, "ssm": rwkv6,
+                  "hybrid": rglru}
 
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_family_dispatch(arch):
+    """Every family of the registry is ported and dispatches."""
     cfg = registry.get_smoke_config(arch)
-    if cfg.family in FAMILY_MODULES:
-        assert get_model(cfg) is FAMILY_MODULES[cfg.family]
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(cfg)
+    assert get_model(cfg) is FAMILY_MODULES[cfg.family]
 
 
 def test_init_stacked_layout():
@@ -137,10 +137,12 @@ def test_init_stacked_layout():
 
 def test_param_layout_matches_jax():
     """The port's ``init`` gives the JAX package's tree: same paths,
-    shapes and dtypes, so the one carries over onto the other."""
+    shapes and dtypes (the MoE layers' stacked (G, E, D, F) expert
+    weights included), so the one carries over onto the other."""
     from repro.configs import registry as jreg
     for arch in ("gemma3-12b", "hubert-xlarge", "rwkv6-3b",
-                 "recurrentgemma-2b", "recurrentgemma-2b 4 layers"):
+                 "recurrentgemma-2b", "recurrentgemma-2b 4 layers",
+                 "olmoe-1b-7b", "granite-moe-3b-a800m"):
         name, *rest = arch.split(" ")
         # 4 layers of recurrentgemma: one stacked unit and a tail layer
         n = {"n_layers": 4} if rest else {}
