@@ -12,7 +12,9 @@ seven phases; any mismatch raises, so the script exits non-zero:
     grouped-matmul kernels against their plain torch versions on the
     card, at the serving paths' shapes, and their times (cold L2) beside
     the plain version, the library call (none for the two scans) and the
-    bound;
+    bound; the grouped matmul on both of its routes (the tensor-core
+    kernel, and the SIMT kernel that fp32, strided x and odd widths take),
+    and its wrapper's host time per call on each;
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -52,7 +54,9 @@ seven phases; any mismatch raises, so the script exits non-zero:
     flash attention once per layer per prefill.  Decode is held to
     prefill at S = 77 and 1000 with the capacity factor raised to
     n_experts / top_k (so that no assignment drops in either), in bf16 at
-    full depth and fp32 on 4 layers.
+    full depth and fp32 on 4 layers.  Every grouped matmul of the bf16
+    serving run takes the tensor-core route, every one of the fp32 check
+    the SIMT route.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -116,9 +120,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    for line in ptxas_lines(_build.build_log):
+        print(f"ptxas: {line}")
     print(f"phase build: {build_s:.2f} s")
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -169,13 +172,33 @@ def main() -> int:
     return 0
 
 
+def ptxas_lines(log: str):
+    """``nvcc -Xptxas -v``'s registers, shared memory and spills, one line
+    per kernel instance, and any warning."""
+    import re
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)I(\w*?)EEv", line)
+            kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
+        elif "spill" in line:
+            spills = line
+        elif "registers" in line:
+            yield f"{kernel}: {line.split(': ', 1)[-1]}; {spills}"
+        elif "warning" in line.lower():
+            yield line
+
+
 # ---------------------------------------------------------------- timing
 
 
 def reset_launches(counted) -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count (and route counts) to 0."""
     for mod in counted.values():
         mod.launches = 0
+        for route in getattr(mod, "routes", {}):
+            mod.routes[route] = 0
 
 
 def read_launches(counted) -> dict:
@@ -196,6 +219,20 @@ def time_ms(torch, fn, flush) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / ITERS
+
+
+def host_us_per_call(torch, fn, n=100) -> float:
+    """Host microseconds per call of ``fn``, which only enqueues work: the
+    mean over ``n`` calls, timed without a synchronise, after 3 warm ones."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -248,22 +285,40 @@ RGLRU_ROWS = [
     (3, 64, 96, "float32", "sweep"),
 ]
 RGLRU_MAIN = RGLRU_ROWS[0]
-# E, C, D, F, dtype, what: olmoe-1b-7b's gate/up and down GEMMs at a
-# 1000-token prefill (C = 160), decode (C = 8) and a 4096-token prefill
-# (C = 648), granite-moe-3b-a800m at 1000 tokens, then ragged C, D, F
+# E, C, D, F, dtype, what, x's layout: olmoe-1b-7b's gate/up and down
+# GEMMs at every row count its bf16 serving run gives them (phase g
+# checks that it gives no other): a 1000-token prefill (C = 160), decode
+# (C = 8), 77 tokens or two decoding sequences (C = 16), 256 tokens or
+# two 128-token prompts (48 rows) and a 4096-token prefill (C = 648,
+# three 216-row tiles on the wgmma route); C = 17, granite-moe-3b-a800m
+# at 1000 tokens, then ragged C, D, F; last, bf16 rows that take the
+# SIMT route: x a transposed view, and widths that are no multiple of 8
 GMM_ROWS = [
-    (64, 160, 2048, 1024, "bfloat16", "olmoe-1b-7b S1000 gate"),
-    (64, 160, 1024, 2048, "bfloat16", "olmoe-1b-7b S1000 down"),
-    (64, 160, 2048, 1024, "float32", "olmoe-1b-7b S1000 gate"),
-    (64, 8, 2048, 1024, "bfloat16", "olmoe-1b-7b decode gate"),
-    # the two tiles at the row count where the kernel switches: C = 16
-    # (S 77) takes the 16-row tile, C = 17 the 64-row one
-    (64, 16, 2048, 1024, "bfloat16", "olmoe-1b-7b S77 gate"),
-    (64, 17, 2048, 1024, "bfloat16", "C 17"),
-    (64, 648, 2048, 1024, "bfloat16", "olmoe-1b-7b S4096 gate"),
-    (40, 256, 1536, 512, "bfloat16", "granite-moe-3b-a800m S1000 gate"),
-    (40, 104, 1000, 200, "bfloat16", "ragged"),
+    (64, 160, 2048, 1024, "bfloat16", "olmoe-1b-7b S1000 gate", "contiguous"),
+    (64, 160, 1024, 2048, "bfloat16", "olmoe-1b-7b S1000 down", "contiguous"),
+    (64, 160, 2048, 1024, "float32", "olmoe-1b-7b S1000 gate", "contiguous"),
+    (64, 8, 2048, 1024, "bfloat16", "olmoe-1b-7b decode gate", "contiguous"),
+    (64, 8, 1024, 2048, "bfloat16", "olmoe-1b-7b decode down", "contiguous"),
+    # C = 16 (S 77) and C = 17: on the wgmma route N = 16 and N = 24 rows;
+    # on the SIMT route the 16-row and the 64-row tile
+    (64, 16, 2048, 1024, "bfloat16", "olmoe-1b-7b S77 gate", "contiguous"),
+    (64, 16, 1024, 2048, "bfloat16", "olmoe-1b-7b S77 down", "contiguous"),
+    (64, 17, 2048, 1024, "bfloat16", "C 17", "contiguous"),
+    (64, 48, 2048, 1024, "bfloat16", "olmoe-1b-7b S256 gate", "contiguous"),
+    (64, 48, 1024, 2048, "bfloat16", "olmoe-1b-7b S256 down", "contiguous"),
+    (64, 648, 2048, 1024, "bfloat16", "olmoe-1b-7b S4096 gate", "contiguous"),
+    (64, 648, 1024, 2048, "bfloat16", "olmoe-1b-7b S4096 down", "contiguous"),
+    (40, 256, 1536, 512, "bfloat16", "granite-moe-3b-a800m S1000 gate",
+     "contiguous"),
+    (40, 104, 1000, 200, "bfloat16", "ragged", "contiguous"),
+    (64, 160, 2048, 1024, "bfloat16", "olmoe-1b-7b S1000 gate", "transposed"),
+    (40, 17, 100, 7, "bfloat16", "odd widths", "contiguous"),
 ]
+# the wgmma route's kernel instances, one per tile height N = 8, 16, ...,
+# 256, each held once against the plain version at C = N: D 1088 is 17
+# stages, more than twice round the deepest ring (8), and F 192 gives one
+# full 128-column block and one whose second warpgroup lies past F
+GMM_INSTANCES = [(2, n, 1088, 192) for n in range(8, 257, 8)]
 GMM_MAIN = GMM_ROWS[0]
 
 
@@ -465,15 +520,23 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             entries["rglru"] = row
 
     # K6: the MoE layer's per-expert GEMMs; the library call is torch.bmm
-    # on the same operands (cuBLAS, tensor cores in bf16)
+    # on the same operands (cuBLAS, tensor cores in bf16).  Each row names
+    # the route its call took.
     for case in GMM_ROWS:
-        E, C, D, F, dt, what = case
+        E, C, D, F, dt, what, layout = case
         dtype = dtypes[dt]
-        x = torch.randn(E, C, D, generator=gen, device=dev).to(dtype)
+        if layout == "transposed":
+            x = torch.randn(E, D, C, generator=gen, device=dev).to(dtype)
+            x = x.transpose(1, 2)
+        else:
+            x = torch.randn(E, C, D, generator=gen, device=dev).to(dtype)
         w = torch.randn(E, D, F, generator=gen, device=dev).to(dtype)
         tol = 1e-4 if dtype == torch.float32 else 5e-2
+        route = gm.route(x, w)
+        before = gm.routes[route]
         row = record(
-            "grouped_matmul", f"{what} ({E},{C},{D})x({E},{D},{F})", dtype,
+            "grouped_matmul", f"{what} ({E},{C},{D})x({E},{D},{F})"
+            f"{'' if layout == 'contiguous' else ', x ' + layout}", dtype,
             gm.grouped_matmul(x, w), grouped_matmul_ref(x, w),
             (tol * math.sqrt(D), tol),
             {"ms": lambda: gm.grouped_matmul(x, w),
@@ -481,8 +544,49 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
              "library_ms": lambda: torch.bmm(x, w)},
             2.0 * E * C * D * F,
             (E * C * D + E * D * F + E * C * F) * x.element_size())
+        if gm.routes[route] == before:
+            raise AssertionError(f"grouped_matmul {row['case']}: no launch "
+                                 f"on the {route} route")
+        row["route"] = route
         if case == GMM_MAIN:
             entries["grouped_matmul"] = row
+    err = 0.0
+    for E, C, D, F in GMM_INSTANCES:
+        x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+        w = torch.randn(E, D, F, generator=gen, device=dev).bfloat16()
+        before = gm.routes["wgmma"]
+        got, want = gm.grouped_matmul(x, w), grouped_matmul_ref(x, w)
+        diff = (got.float() - want.float()).abs()
+        err = max(err, diff.max().item())
+        if gm.routes["wgmma"] != before + 1 or not bool(
+                (diff <= 5e-2 * math.sqrt(D)
+                 + 5e-2 * want.float().abs()).all()):
+            raise AssertionError(f"grouped_matmul wgmma instance N {C} "
+                                 f"({E},{C},{D})x({E},{D},{F}): route "
+                                 f"{gm.route(x, w)}, max abs err "
+                                 f"{diff.max().item()}")
+    print(f"grouped_matmul wgmma instances: {len(GMM_INSTANCES)} tile "
+          f"heights N 8..256 at (2,N,1088)x(2,1088,192) bf16 held to the "
+          f"plain version, max abs err {err}")
+    # the wrapper's host time per call (enqueue only, no synchronise) at
+    # the decode shape, on each route: a decode step makes 48 such calls
+    E, C, D, F = 64, 8, 2048, 1024
+    w = torch.randn(E, D, F, generator=gen, device=dev).bfloat16()
+    host_us = {}
+    for route, x in (
+            ("wgmma", torch.randn(E, C, D, generator=gen,
+                                  device=dev).bfloat16()),
+            ("simt", torch.randn(E, D, C, generator=gen,
+                                 device=dev).bfloat16().transpose(1, 2))):
+        if gm.route(x, w) != route:
+            raise AssertionError(f"host-time operands take {gm.route(x, w)}"
+                                 f", not {route}")
+        host_us[route] = host_us_per_call(torch,
+                                          lambda: gm.grouped_matmul(x, w))
+    print(f"grouped_matmul host time per call, decode ({E},{C},{D})x({E},"
+          f"{D},{F}) bf16, no synchronise: wgmma {host_us['wgmma']:.2f} us, "
+          f"simt {host_us['simt']:.2f} us")
+    entries["grouped_matmul"]["host_us_per_call"] = host_us
     del flush
     torch.cuda.empty_cache()
 
@@ -515,7 +619,10 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **({"library": r["library"]} if "library" in r else {})})
+            **({"library": r["library"]} if "library" in r else {}),
+            **({"dispatch": r["route"]} if "route" in r else {}),
+            **({"host_us_per_call": r["host_us_per_call"]}
+               if "host_us_per_call" in r else {})})
     return sweep, kernels
 
 
@@ -648,7 +755,11 @@ LM_PHASES = {
           "check_s": (77, 1000), "fp32_layers": 4,
           "norms_per_pass": 16 * 2 + 1,        # ln1, ln2; ln_f
           "per_prefill": {"flash_attention": 16},
-          "per_pass": {"grouped_matmul": 16 * 3}},   # gate, up, down
+          "per_pass": {"grouped_matmul": 16 * 3},    # gate, up, down
+          # the grouped matmul's launches per pass by route: bf16 serving
+          # runs only the tensor-core kernel
+          "routes_per_pass": {"grouped_matmul": {"wgmma": 16 * 3,
+                                                 "simt": 0}}},
 }
 # decode-vs-prefill tolerance, as the relative L2 error of the logits.
 # bf16, full depth: the two paths round activations to bf16 at different
@@ -808,6 +919,27 @@ def phase_lm(torch, dev, card, counted, spec):
                 f"{cfg.name}: {name} launched {launches[name]} times, not "
                 f"{n} ({len(batches)} prefills, {LM_DECODE} decode steps "
                 f"each)")
+    routed = spec.get("routes_per_pass", {})
+    for name, per_pass in routed.items():
+        got = dict(counted[name].routes)
+        if got != {r: n * passes for r, n in per_pass.items()}:
+            raise AssertionError(f"{cfg.name}: {name} launches by route "
+                                 f"{got}, not {per_pass} per pass")
+        print(f"lm serve {cfg.name}: {name} launches by route {got}")
+    if "grouped_matmul" in routed:
+        # every grouped-matmul shape this run served is a bf16 row of
+        # phase a, held there against the plain version: B sequences of
+        # capacity(S) rows each at prefill, of capacity(1) at decode
+        held = {(E, C, D, F) for E, C, D, F, dt, _, layout in GMM_ROWS
+                if dt == "bfloat16" and layout == "contiguous"}
+        served = {(cfg.n_experts, B * model.capacity(cfg, s), d, f)
+                  for B, S in prompts for s in (S, 1)
+                  for d, f in ((cfg.d_model, cfg.d_ff),
+                               (cfg.d_ff, cfg.d_model))}
+        if served - held:
+            raise AssertionError(f"{cfg.name}: grouped matmul shapes "
+                                 f"{sorted(served - held)} served but not "
+                                 f"held to the plain version in phase a")
     for (B, S), (pre_s, dec_s, toks) in zip(prompts, times):
         print(f"lm serve {cfg.name} B{B} S{S}: prefill {pre_s * 1e3:.3f} "
               f"ms, decode {dec_s * 1e3:.3f} ms/token ({B * LM_DECODE} "
@@ -876,10 +1008,19 @@ def phase_lm(torch, dev, card, counted, spec):
     p32 = stacking.tree_map(lambda t: t.float(), p32)
     del params
     torch.cuda.empty_cache()
+    routes_before = {name: dict(counted[name].routes) for name in routed}
     for S in spec["check_s"]:
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg32.dtype, cfg32.n_layers, S,
                         _teacher_forced(torch, model, cfg32, p32, x)))
+    # the fp32 copy runs every grouped matmul on the SIMT route
+    for name, before in routes_before.items():
+        got = {r: n - before[r] for r, n in counted[name].routes.items()}
+        if got["wgmma"] != 0 or got["simt"] == 0:
+            raise AssertionError(f"{cfg.name} fp32 check: {name} launches "
+                                 f"by route {got}")
+        print(f"lm decode-vs-prefill {cfg.name} fp32: {name} launches by "
+              f"route {got}")
     if factor is not None:
         model.CAPACITY_FACTOR = factor
     del p32

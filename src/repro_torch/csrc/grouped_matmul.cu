@@ -1,8 +1,8 @@
 // Grouped (per-expert) GEMM for Hopper (sm_90a): out[e] = x[e] @ w[e] for
 // every expert e, x (E,C,D) and w (E,D,F) in fp32 or bf16, an fp32
-// accumulator, out (E,C,F) in x's dtype.  The MoE layer's capacity-padded
-// dispatch: C rows per expert (a multiple of 8, most of them the zero pad
-// row at decode), the expert weights read once each.
+// accumulator, out (E,C,F) in x's dtype, rounded once.  The MoE layer's
+// capacity-padded dispatch: C rows per expert (a multiple of 8, most of
+// them the zero pad row at decode), the expert weights read once each.
 //
 // Replaces: src/repro/kernels/grouped_matmul/grouped_matmul.py,
 // grouped_matmul_pallas (an (E, C/bc, F/bf, D/bd) grid with the
@@ -11,28 +11,51 @@
 //
 // What bounds it on an H100: at decode (C = 8) the weight read, every
 // expert's D x F matrix once, at the 3.35 TB/s memory rate; at prefill
-// (C = 160-648 for olmoe) the products, which run here as plain fp32 FMAs
-// on the 67 TFLOP/s SIMT units (tensor cores, TMA and skipping experts
-// that received no token are later work).
+// (C = 160-648 for olmoe) the products, at the 989 TFLOP/s of the bf16
+// tensor cores.
 //
-// Design: the expert rides grid axis z and the row tiles grid axis x, so
-// the blocks that share one expert's weight column tile run next to each
-// other and the tile is read from device memory about once.  One block
-// per BM x 64 output tile: BM = 64 rows with 256 threads in general, BM =
-// 16 rows with 64 threads when C <= 16 (decode), so a decode step does not
-// multiply 56 pad rows per expert.  The contraction walks in BK-wide steps
+// Two routes, chosen by the wrapper before it launches
+// (kernels/grouped_matmul/grouped_matmul.py, route()):
+//
+// "wgmma", bf16 operands whose innermost stride is 1, other strides and
+// bases 16-byte aligned, D and F multiples of 8 (the whole bf16 MoE
+// serving path).  The product runs transposed, out[e]^T = w[e]^T x[e]^T:
+// 64 columns of w fill the 64 rows of a warpgroup's wgmma, and the C rows
+// of x are its N (a multiple of 8 up to 256), so capacities that are a
+// multiple of 8 multiply no pad rows.  One block per (128-column F tile,
+// C tile, expert), the expert outermost so that an expert's x tile stays
+// in L2 while its weight strips stream past; C > 256 splits into equal
+// tiles of at most 256 rows.  Warp-specialised: a producer warp issues the
+// TMA loads of a ring of shared-memory stages (w boxes 64 F x 64 D,
+// MN-major; x boxes N C x 64 D, K-major; both 128-byte swizzled, zeros
+// past the ragged edges of C, D and F, so the main loop has no masks),
+// with a full and an empty mbarrier per stage; two consumer warpgroups,
+// 64 F rows each, run wgmma m64nNk16 on the stages that have arrived (N
+// as a sum of the instruction's power-of-two widths), wait for them and
+// release the stage.  setmaxnreg moves registers from the producer to the
+// consumers.  The epilogue rounds the fp32 accumulators to bf16 once,
+// transposes them through shared memory and writes (E,C,F) with 16-byte
+// stores, masked past C and F.
+//
+// "simt", every other call (fp32 operands, strided or misaligned views,
+// odd widths): plain fp32 FMAs on the SIMT units.  The expert rides grid
+// axis z and the row tiles grid axis x, so the blocks that share one
+// expert's weight column tile run next to each other.  One block per BM x
+// 64 output tile: BM = 64 rows with 256 threads in general, BM = 16 rows
+// with 64 threads when C <= 16.  The contraction walks in BK-wide steps
 // through two shared tiles held in fp32; each thread keeps a 4x4 register
-// tile and reads its 4 rows and 4 columns with one 16-byte shared load
-// each per k.  The next step's operands are loaded into registers, in
-// their own type and all at once, while the current step's FMAs run; they
-// are converted to fp32 as they are stored to the shared tiles.  x and w are
-// read through their (expert, row, column) strides; the ragged edges of C,
-// D and F are masked, so no dimension needs to be a multiple of a tile.
-// Each output is one thread's FMA chain in a fixed order: no split-K and
-// no atomics, so the result is deterministic.
+// tile.  The next step's operands are loaded into registers, in their own
+// type, while the current step's FMAs run.  x and w are read through
+// their (expert, row, column) strides; the ragged edges of C, D and F are
+// masked.
+//
+// Each output is one accumulation in a fixed order on both routes: no
+// split-K and no atomics, so the result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -190,11 +213,238 @@ int launch(const void* x, const void* w, void* out, int E, int C, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- wgmma
+
+namespace wg {
+
+constexpr int BM = 128;           // F columns per block: two warpgroups of 64
+constexpr int BK = 64;            // D per stage: one 128-byte swizzled row
+constexpr int A_BYTES = 64 * BK * 2;         // one 64 F x 64 D box of w
+constexpr int THREADS = 384;      // producer warpgroup + two consumers
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int SMEM_LIMIT = 232448;           // per block on an H100
+constexpr int LDT = BM + 8;       // epilogue tile row, bf16 (16-byte rows)
+
+template <int N>
+struct Cfg {
+  static constexpr int STAGE = 2 * A_BYTES + N * BK * 2;  // 1024-multiple
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  // 1024 bytes of slack to align the ring, then a full and an empty
+  // mbarrier per stage
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * 8 * STAGES;
+  static_assert(STAGES >= 2, "ring too small");
+  static_assert(N * LDT * 2 <= STAGES * STAGE, "epilogue tile too large");
+};
+
+// acc[.. N/2) += A (64 x 16) * B (16 x N), N split into the widths the
+// instruction has (256, 128, ..., 8); the B rows of a part start OFF rows
+// (OFF * 128 bytes, whole 1024-byte swizzle atoms) further on
+template <int N, int OFF = 0>
+__device__ __forceinline__ void mma_k16(float* acc, uint64_t da,
+                                        uint64_t db) {
+  constexpr int P = N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64
+                  : N >= 32 ? 32 : N >= 16 ? 16 : 8;
+  hopper::wgmma_bf16<P, 1, 0>(acc + OFF / 2, da, db + (OFF * 128 >> 4));
+  if constexpr (N > P) mma_k16<N - P, OFF + P>(acc, da, db);
+}
+
+// tw: w (E,D,F) as boxes of 64 F x 64 D; tx: x (E,C,D) as boxes of 64 D x
+// N C.  Block (F tile, C tile, expert).
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                 const __grid_constant__ CUtensorMap tx,
+                 __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  using K = Cfg<N>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms must start 1024-aligned
+  uint8_t* ring =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::STAGES * K::STAGE);
+  uint64_t* empty = full + K::STAGES;
+  const int f0 = blockIdx.x * BM;
+  const int c0 = blockIdx.y * N;
+  const int e = blockIdx.z;
+  const int nk = (D + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);       // the consumers' 8 warps
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        hopper::mbar_wait(&empty[s], phase ^ 1);   // round 0 passes
+        uint8_t* st = ring + s * K::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], K::STAGE);
+        hopper::tma_load_3d(st, &tw, &full[s], f0, kb * BK, e);
+        hopper::tma_load_3d(st + A_BYTES, &tw, &full[s], f0 + 64, kb * BK,
+                            e);
+        hopper::tma_load_3d(st + 2 * A_BYTES, &tx, &full[s], kb * BK, c0, e);
+        if (++s == K::STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw multiplies F rows f0 + 64 cw .. + 63
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int ct = threadIdx.x - 128;
+  const int cw = ct / 128;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* st = ring + s * K::STAGE;
+    // w box: 64 rows of D, 128 bytes of F each; a k16 step is 16 rows
+    const uint64_t da = hopper::desc_sw128(st + cw * A_BYTES, 1024, 1024);
+    // x box: N rows of C, 128 bytes of D each; a k16 step is 32 bytes
+    const uint64_t db = hopper::desc_sw128(st + 2 * A_BYTES, 16, 1024);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k)
+      mma_k16<N>(acc, da + (k * 16 * 128 >> 4), db + (k * 32 >> 4));
+    hopper::wgmma_commit();
+    // Wait for this stage's products, then give its slot back.  Keeping
+    // one group in flight here (wait_group 1, releasing the stage before)
+    // is no faster on the card, and ptxas then hoisted the epilogue's
+    // reads of acc above the final wait_group 0 (seen in the SASS): wrong
+    // results.  The producer's ring and the other warpgroup keep the
+    // tensor cores busy meanwhile.
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if ((ct & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    if (++s == K::STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  // epilogue: both warpgroups are past their last wgmma, so the ring holds
+  // the bf16 tile [N][LDT], C-major, which rows of 16-byte stores write out
+  hopper::named_bar_sync(1, 256);
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+  const int t = ct % 128;
+  const int fr = cw * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int cc = 2 * (t % 4);
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const int f = fr + 8 * ((q >> 1) & 1);
+    const int c = 8 * (q >> 2) + cc + (q & 1);
+    tile[c * LDT + f] = __float2bfloat16(acc[q]);
+  }
+  hopper::named_bar_sync(1, 256);
+  constexpr int CHUNKS = BM / 8;               // 16-byte chunks per row
+  for (int i = ct; i < N * CHUNKS; i += 256) {
+    const int c = i / CHUNKS, gc = c0 + c;
+    const int gf = f0 + (i % CHUNKS) * 8;
+    if (gc < C && gf < F)
+      *reinterpret_cast<uint4*>(out + (static_cast<long long>(e) * C + gc) *
+                                          F + gf) =
+          *reinterpret_cast<const uint4*>(tile + c * LDT + (i % CHUNKS) * 8);
+  }
+}
+
+// rows per C tile: C split into equal tiles of at most 256, rounded up to 8
+inline int tile_rows(int C) {
+  const int tiles = (C + 255) / 256;
+  return ((C + tiles - 1) / tiles + 7) / 8 * 8;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <int N>
+int launch_n(const void* x, const void* w, void* out, int E, int C, int D,
+             int F, long long sxe, long long sxc, long long swe,
+             long long swd, cudaStream_t stream) {
+  using K = Cfg<N>;
+  // once per device: setmaxnreg redistributes the block's registers, so
+  // the consumers' 232 exist only if ptxas gave every thread its share of
+  // the 64K; and the shared memory above 48 KB must be opted into
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, gmm_wgmma_kernel<N>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (a.numRegs * THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    err = cudaFuncSetAttribute(gmm_wgmma_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               K::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  // the tensor maps are encoded on the host at every call (no cache to
+  // invalidate when the allocator hands out an address again)
+  CUtensorMap tw, tx;
+  int rc = hopper::encode_bf16_3d_sw128(&tw, w, F, D, E, swd, swe, 64, BK);
+  if (rc != 0) return rc;
+  rc = hopper::encode_bf16_3d_sw128(&tx, x, D, C, E, sxc, sxe, BK, N);
+  if (rc != 0) return rc;
+  const dim3 grid((F + BM - 1) / BM, (C + N - 1) / N, E);
+  gmm_wgmma_kernel<N><<<grid, THREADS, K::SMEM, stream>>>(
+      tw, tx, static_cast<__nv_bfloat16*>(out), C, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define REPRO_GMM_CASE(n)                                              \
+  case n:                                                              \
+    return launch_n<n>(x, w, out, E, C, D, F, sxe, sxc, swe, swd, s);
+
+int launch(const void* x, const void* w, void* out, int E, int C, int D,
+           int F, long long sxe, long long sxc, long long swe, long long swd,
+           void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (tile_rows(C)) {
+    REPRO_GMM_CASE(8) REPRO_GMM_CASE(16) REPRO_GMM_CASE(24)
+    REPRO_GMM_CASE(32) REPRO_GMM_CASE(40) REPRO_GMM_CASE(48)
+    REPRO_GMM_CASE(56) REPRO_GMM_CASE(64) REPRO_GMM_CASE(72)
+    REPRO_GMM_CASE(80) REPRO_GMM_CASE(88) REPRO_GMM_CASE(96)
+    REPRO_GMM_CASE(104) REPRO_GMM_CASE(112) REPRO_GMM_CASE(120)
+    REPRO_GMM_CASE(128) REPRO_GMM_CASE(136) REPRO_GMM_CASE(144)
+    REPRO_GMM_CASE(152) REPRO_GMM_CASE(160) REPRO_GMM_CASE(168)
+    REPRO_GMM_CASE(176) REPRO_GMM_CASE(184) REPRO_GMM_CASE(192)
+    REPRO_GMM_CASE(200) REPRO_GMM_CASE(208) REPRO_GMM_CASE(216)
+    REPRO_GMM_CASE(224) REPRO_GMM_CASE(232) REPRO_GMM_CASE(240)
+    REPRO_GMM_CASE(248) REPRO_GMM_CASE(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef REPRO_GMM_CASE
+
+}  // namespace wg
+
 }  // namespace
 
 // C entry points, bound with ctypes.  Strides are in elements: (expert,
 // row, column) of x, then of w; out is a contiguous (E,C,F) tensor of x's
-// dtype.  Each returns cudaGetLastError() after launch.
+// dtype.  Each returns cudaGetLastError() after launch, or the error that
+// kept it from launching.  The first two are the SIMT route, the third the
+// wgmma route (bf16; the column strides must be 1).
 extern "C" int repro_grouped_matmul_f32(const void* x, const void* w,
                                         void* out, int E, int C, int D, int F,
                                         long long sxe, long long sxc,
@@ -213,4 +463,12 @@ extern "C" int repro_grouped_matmul_bf16(const void* x, const void* w,
                                          void* stream) {
   return launch<__nv_bfloat16>(x, w, out, E, C, D, F, sxe, sxc, sxd, swe,
                                swd, swf, stream);
+}
+
+extern "C" int repro_grouped_matmul_bf16_wgmma(
+    const void* x, const void* w, void* out, int E, int C, int D, int F,
+    long long sxe, long long sxc, long long sxd, long long swe,
+    long long swd, long long swf, void* stream) {
+  if (sxd != 1 || swf != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::launch(x, w, out, E, C, D, F, sxe, sxc, swe, swd, stream);
 }

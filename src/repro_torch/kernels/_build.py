@@ -4,9 +4,10 @@ Every source in ``src/repro_torch/csrc/*.cu`` is compiled for ``sm_90a``
 by its own ``nvcc`` process, all started together, and the objects are
 linked into one shared library under ``build/repro_torch/`` at the
 repository root, on first use.  The library's name carries a hash of
-the sources and flags, so an edited kernel is rebuilt and an unchanged one
-is loaded as it is.  The sources expose a plain C interface (no PyTorch
-headers), which keeps the build to seconds.
+the sources, the headers they include (``csrc/*.cuh``) and the flags, so
+an edited kernel or header is rebuilt and an unchanged one is loaded as
+it is.  The sources expose a plain C interface (no PyTorch headers),
+which keeps the build to seconds.
 
 Nothing here falls back: a missing ``nvcc``, a failed build or a failed
 launch raises.  The CPU path of each wrapper never reaches this module.
@@ -61,6 +62,8 @@ SIGNATURES = {
                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],
     "repro_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I,
                                   _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    "repro_grouped_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I,
+                                        _LL, _LL, _LL, _LL, _LL, _LL, _P],
 }
 
 _lock = threading.Lock()
@@ -69,7 +72,13 @@ build_log = ""          # nvcc's output of the build this process ran
 
 
 def sources():
+    """The translation units: each ``csrc/*.cu`` is compiled on its own."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    """The headers the sources include; hashed, never compiled alone."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -88,7 +97,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources() + headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"

@@ -318,12 +318,22 @@ def test_recurrent_lm_on_card_matches_cpu(cuda, arch):
 
 
 # E, C, D, F: olmoe-1b-7b decode (C = 8) and prefill of 1000 tokens (gate
-# and down, C = 160) and of 4096 (C = 648), granite-moe-3b-a800m at 1000
-# tokens, the SMOKE widths, then ragged C, D and F (no multiple of a tile)
+# and down, C = 160) and of 4096 (C = 648: three tiles of 216 rows on the
+# wgmma route), granite-moe-3b-a800m at 1000 tokens, the SMOKE widths,
+# then ragged C, D and F (no multiple of a tile), then the wgmma route's
+# tile edges: C 16, 17, 24, 216, 217, 256 (one tile) and 257 (two), and
+# ragged D 1000 and F 200 that are multiples of 8; last, the rest of
+# olmoe-1b-7b's serving shapes: 48 rows (S 256, or two 128-token prompts)
+# gate and down, and the down GEMM at 8, 16 and 648 rows
 GMM_CASES = [
     (64, 8, 2048, 1024), (64, 160, 2048, 1024), (64, 160, 1024, 2048),
     (64, 648, 2048, 1024), (40, 256, 1536, 512), (5, 16, 48, 32),
     (5, 40, 33, 65), (40, 17, 100, 7),
+    (4, 16, 256, 192), (4, 17, 256, 192), (4, 24, 256, 192),
+    (4, 216, 256, 192), (4, 217, 256, 192), (4, 256, 256, 192),
+    (4, 257, 256, 192), (40, 104, 1000, 200),
+    (64, 48, 2048, 1024), (64, 48, 1024, 2048), (64, 8, 1024, 2048),
+    (64, 16, 1024, 2048), (64, 648, 1024, 2048),
 ]
 
 
@@ -335,12 +345,34 @@ def _gmm_close(got, want, D, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,D,F", GMM_CASES)
 def test_grouped_matmul_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    """Each call launches once, on the route route() names: bf16 with D
+    and F multiples of 8 on the tensor cores, the rest on the SIMT
+    kernel."""
     x = _randn((E, C, D), dtype, cuda, 17)
     w = _randn((E, D, F), dtype, cuda, 18)
-    before = gmm.launches
+    want_route = ("wgmma" if dtype == "bfloat16" and D % 8 == 0
+                  and F % 8 == 0 else "simt")
+    assert gmm.route(x, w) == want_route
+    before, routes = gmm.launches, dict(gmm.routes)
     got = gmm.grouped_matmul(x, w)
     assert gmm.launches == before + 1
+    assert gmm.routes == {**routes, want_route: routes[want_route] + 1}
     _gmm_close(got, grouped_matmul_ref(x, w), D, dtype)
+
+
+@pytest.mark.parametrize("N", range(8, 257, 8))
+def test_grouped_matmul_wgmma_every_instance(cuda, N):
+    """Each of the wgmma route's 32 kernel instances (tile height N) at C
+    = N: D 1088 runs 17 stages, more than twice round the deepest ring,
+    and F 192 leaves the second block's second warpgroup past F."""
+    E, C, D, F = 2, N, 1088, 192
+    x = _randn((E, C, D), "bfloat16", cuda, 25)
+    w = _randn((E, D, F), "bfloat16", cuda, 26)
+    assert gmm.route(x, w) == "wgmma"
+    before = gmm.routes["wgmma"]
+    got = gmm.grouped_matmul(x, w)
+    assert gmm.routes["wgmma"] == before + 1
+    _gmm_close(got, grouped_matmul_ref(x, w), D, "bfloat16")
 
 
 @pytest.mark.parametrize("layout", ["expert-strided", "transposed",
@@ -363,6 +395,45 @@ def test_grouped_matmul_strided_and_deterministic(cuda, layout):
     assert torch.equal(got, gmm.grouped_matmul(x, w))
     _gmm_close(got, grouped_matmul_ref(x.contiguous(), w.contiguous()), D,
                "float32")
+
+
+@pytest.mark.parametrize("E,C,D,F", [(64, 160, 2048, 1024),
+                                     (4, 257, 256, 192), (64, 8, 2048, 1024)])
+def test_grouped_matmul_wgmma_is_deterministic(cuda, E, C, D, F):
+    """The tensor-core route gives the same bits in two calls."""
+    x = _randn((E, C, D), "bfloat16", cuda, 21)
+    w = _randn((E, D, F), "bfloat16", cuda, 22)
+    assert gmm.route(x, w) == "wgmma"
+    got = gmm.grouped_matmul(x, w)
+    assert torch.equal(got, gmm.grouped_matmul(x, w))
+    _gmm_close(got, grouped_matmul_ref(x, w), D, "bfloat16")
+
+
+def test_grouped_matmul_wgmma_column_slice_w(cuda):
+    """bf16 w as a column slice of a wider weight, 8 columns (16 bytes)
+    in: the tensor maps read it through its strides."""
+    E, C, D, F = 40, 24, 96, 72
+    x = _randn((E, C, D), "bfloat16", cuda, 23)
+    w = _randn((E, D, F + 16), "bfloat16", cuda, 24)[:, :, 8:8 + F]
+    assert not w.is_contiguous() and gmm.route(x, w) == "wgmma"
+    before = gmm.routes["wgmma"]
+    got = gmm.grouped_matmul(x, w)
+    assert gmm.routes["wgmma"] == before + 1
+    _gmm_close(got, grouped_matmul_ref(x, w.contiguous()), D, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_idle_expert_gives_zeros(cuda, dtype):
+    """An expert whose x rows are all zero (no token routed to it) gets an
+    output of exactly 0 on both routes."""
+    E, C, D, F = 8, 16, 512, 256
+    x = _randn((E, C, D), dtype, cuda, 25)
+    x[3] = 0
+    w = _randn((E, D, F), dtype, cuda, 26)
+    got = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+    _gmm_close(got, grouped_matmul_ref(x, w), D, dtype)
 
 
 def _moe_smoke(arch, dtype):

@@ -111,3 +111,91 @@ def test_pallas_asserts_at_a_serving_capacity():
                      tw.numpy().astype(np.float64))
     np.testing.assert_allclose(grouped_matmul_ref(tx, tw).numpy(), want,
                                atol=1e-4, rtol=1e-4)
+
+
+# E, C, D, F of the MoE serving path: olmoe-1b-7b's gate/up GEMM at C 8
+# (decode), 16, 48, 160 and 648 (prefill of 77, 256, 1000 and 4096
+# tokens), its down GEMM at C 160, granite-moe-3b-a800m's gate at C 256
+SERVING = [(64, 8, 2048, 1024), (64, 16, 2048, 1024), (64, 48, 2048, 1024),
+           (64, 160, 2048, 1024), (64, 648, 2048, 1024),
+           (64, 160, 1024, 2048), (40, 256, 1536, 512)]
+
+
+def _meta(shape, dtype):
+    """A tensor with shape, strides and a data pointer, and no storage."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("E,C,D,F", SERVING)
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_route_at_the_serving_shapes(E, C, D, F, dtype, want):
+    """Contiguous bf16 operands take the tensor-core kernel; fp32 takes
+    the SIMT one (the fp32 contract allows no TF32)."""
+    assert tgmm.route(_meta((E, C, D), dtype), _meta((E, D, F), dtype)) \
+        == want
+
+
+@pytest.mark.parametrize("x,w,want", [
+    # x the transpose of an (E, D, C) tensor: its innermost stride is C
+    (_meta((64, 2048, 160), torch.bfloat16).transpose(1, 2),
+     _meta((64, 2048, 1024), torch.bfloat16), "simt"),
+    # D or F not a multiple of 8
+    (_meta((40, 17, 100), torch.bfloat16),
+     _meta((40, 100, 7), torch.bfloat16), "simt"),
+    (_meta((5, 40, 33), torch.bfloat16),
+     _meta((5, 33, 64), torch.bfloat16), "simt"),
+    (_meta((5, 40, 64), torch.bfloat16),
+     _meta((5, 64, 65), torch.bfloat16), "simt"),
+    # ragged C, D 1000 and F 200 (multiples of 8)
+    (_meta((40, 104, 1000), torch.bfloat16),
+     _meta((40, 1000, 200), torch.bfloat16), "wgmma"),
+    (_meta((4, 17, 256), torch.bfloat16),
+     _meta((4, 256, 192), torch.bfloat16), "wgmma"),
+    # a column slice of a wider w: 8 columns in (16 bytes) keeps the
+    # alignment, 4 columns in (8 bytes) breaks it
+    (_meta((40, 24, 96), torch.bfloat16),
+     _meta((40, 96, 88), torch.bfloat16)[:, :, 8:80], "wgmma"),
+    (_meta((40, 24, 96), torch.bfloat16),
+     _meta((40, 96, 88), torch.bfloat16)[:, :, 4:76], "simt"),
+    # x one of two row blocks per expert: strides stay 16-byte multiples
+    (_meta((40, 2, 24, 96), torch.bfloat16)[:, 1],
+     _meta((40, 96, 72), torch.bfloat16), "wgmma"),
+    # a row stride that is not a multiple of 16 bytes
+    (_meta((8, 16, 100), torch.bfloat16)[:, :, :96],
+     _meta((8, 96, 64), torch.bfloat16), "simt"),
+    # an expert stride of 0 (one x broadcast to every expert)
+    (_meta((1, 16, 64), torch.bfloat16).expand(8, 16, 64),
+     _meta((8, 64, 64), torch.bfloat16), "simt"),
+    # D = 0: nothing for TMA to load
+    (_meta((4, 8, 0), torch.bfloat16), _meta((4, 0, 64), torch.bfloat16),
+     "simt"),
+    # mixed or fp32 operands
+    (_meta((4, 8, 64), torch.float32), _meta((4, 64, 64), torch.float32),
+     "simt"),
+])
+def test_route_of_views_and_widths(x, w, want):
+    assert tgmm.route(x, w) == want
+
+
+def test_route_on_cpu_tensors():
+    """route() reads the data pointer: a real CPU slice whose offset is
+    16 bytes stays on the tensor-core route, one of 8 bytes leaves it."""
+    base = torch.zeros(3, 32, 88, dtype=torch.bfloat16)
+    x = torch.zeros(3, 16, 32, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    assert tgmm.route(x, base[:, :, 8:72]) == "wgmma"
+    assert tgmm.route(x, base[:, :, 4:68]) == "simt"
+
+
+@pytest.mark.parametrize("E,C,D,F", [(5, 8, 48, 32), (3, 17, 64, 40)])
+def test_cpu_bf16_runs_the_plain_version_whatever_the_route(E, C, D, F):
+    """A CPU tensor on the tensor-core route still runs the plain version:
+    no launch and no route counted, the result equal to the plain one."""
+    _, tx = _pair(8, (E, C, D), "bfloat16")
+    _, tw = _pair(9, (E, D, F), "bfloat16")
+    assert tgmm.route(tx, tw) == "wgmma"
+    before, routes = tgmm.launches, dict(tgmm.routes)
+    got = tgmm.grouped_matmul(tx, tw)
+    assert tgmm.launches == before and tgmm.routes == routes
+    assert torch.equal(got, grouped_matmul_ref(tx, tw))
