@@ -12,9 +12,13 @@ seven phases; any mismatch raises, so the script exits non-zero:
     grouped-matmul kernels against their plain torch versions on the
     card, at the serving paths' shapes, and their times (cold L2) beside
     the plain version, the library call (none for the two scans) and the
-    bound; the grouped matmul on both of its routes (the tensor-core
-    kernel, and the SIMT kernel that fp32, strided x and odd widths take),
-    and its wrapper's host time per call on each;
+    bound; flash attention and the grouped matmul on both of their routes
+    (the tensor-core kernel, and the SIMT kernel that fp32 and the shapes
+    and strides TMA cannot read take), each row naming its route, the
+    bf16 flash-attention rows also timed on the SIMT kernel (the design
+    before the tensor-core one), each of the tensor-core flash-attention
+    instances (Dh 64, 128, 256) held once, and the grouped matmul's
+    wrapper's host time per call on each route;
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -28,9 +32,9 @@ seven phases; any mismatch raises, so the script exits non-zero:
     bf16, random weights from a seeded generator) prefills prompts of 77,
     256, 511 and 1000 tokens and a batch of 2 x 128, and greedily decodes
     8 tokens after each; the logits must be finite, flash attention must
-    launch once per layer per prefill and RMSNorm once per norm of each
-    forward pass (prefill or decode step).  Then
-    ``decode_step`` fed token S after ``prefill`` of S tokens is held to
+    launch once per layer per prefill, on the tensor-core route, and
+    RMSNorm once per norm of each forward pass (prefill or decode step).
+    Then ``decode_step`` fed token S after ``prefill`` of S tokens is held to
     ``prefill`` of S + 1 tokens (the flash-attention path against the
     plain decode attention): in bf16 at full depth, and in fp32 on the
     first 4 layers at full width.
@@ -44,8 +48,9 @@ seven phases; any mismatch raises, so the script exits non-zero:
     (configs/recurrentgemma_2b.py, bf16), the same prompts (4096 crosses
     the 2048-token window); the RG-LRU scan must launch once per recurrent
     layer (18) and flash attention once per attention layer (8) per
-    prefill.  Decode is held to prefill at S = 77 and 2100 (a rolled ring
-    cache), in bf16 at full depth and fp32 on 6 layers.
+    prefill, on the tensor-core route.  Decode is held to prefill at S =
+    77 and 2100 (a rolled ring cache), in bf16 at full depth and fp32 on 6
+    layers.
 (g) MoE LM serving: olmoe-1b-7b at full width and depth
     (configs/olmoe_1b_7b.py, bf16: 64 experts, top-8), phase e's prompts
     (4096 tokens dispatch 648 rows per expert, which the TPU kernel's
@@ -54,9 +59,9 @@ seven phases; any mismatch raises, so the script exits non-zero:
     flash attention once per layer per prefill.  Decode is held to
     prefill at S = 77 and 1000 with the capacity factor raised to
     n_experts / top_k (so that no assignment drops in either), in bf16 at
-    full depth and fp32 on 4 layers.  Every grouped matmul of the bf16
-    serving run takes the tensor-core route, every one of the fp32 check
-    the SIMT route.
+    full depth and fp32 on 4 layers.  Every grouped matmul and flash
+    attention of the bf16 serving runs (d, f, g) takes the tensor-core
+    route, every one of their fp32 checks the SIMT route.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -260,7 +265,12 @@ ATTN_ROWS = [
     (1, 2048, 16, 8, 256, True, 1024, "bfloat16", "gemma3-12b local"),
     (1, 500, 16, 16, 80, False, None, "bfloat16", "hubert-xlarge"),
     (1, 4096, 10, 1, 256, True, 2048, "bfloat16", "recurrentgemma-2b local"),
+    (1, 4096, 16, 16, 128, True, None, "bfloat16", "olmoe-1b-7b"),
 ]
+# the wgmma route's kernel instances (Dh 64, 128, 256), each held once:
+# two ragged sequences (333 = 2 query tiles + 77 rows, 5 keys past the
+# last 64- and 128-key tile), GQA 10, a causal window of 100
+FA_INSTANCES = [(2, 333, 20, 2, dh, True, 100) for dh in (64, 128, 256)]
 # the row whose numbers stand for K3 in the kernels line
 ATTN_MAIN = (1, 1000, 32, 8, 128, True, None, "bfloat16", "qwen3-8b")
 # B, T, H, D, dtype, what: rwkv6-3b's serving shapes, then
@@ -320,6 +330,26 @@ GMM_ROWS = [
 # full 128-column block and one whose second warpgroup lies past F
 GMM_INSTANCES = [(2, n, 1088, 192) for n in range(8, 257, 8)]
 GMM_MAIN = GMM_ROWS[0]
+
+
+def simt_attention(torch, q, k, v, causal, win):
+    """The SIMT flash-attention kernel on bf16 operands that route() sends
+    to the wgmma kernel: the design before the tensor-core one, for a time
+    beside it.  Its C entry is called as the wrapper calls it, with no
+    launch counted."""
+    import ctypes
+    from repro_torch.kernels import _build
+    B, S, H, Dh = q.shape
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    rc = _build.library().repro_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        k.shape[2], Dh, strides, int(causal),
+        -1 if win is None else min(win, S),
+        1.0 / math.sqrt(Dh), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention (simt, timed beside wgmma)")
+    return out
 
 
 def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
@@ -458,6 +488,8 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
         label = (f"{what} B{B} S{S} H{H}/{KV} Dh{Dh} "
                  f"{'causal' if causal else 'bidirectional'}"
                  f"{'' if win is None else f' window {win}'}")
+        route = fa.route(q, k, v)
+        before = fa.routes[route]
         row = record(
             "flash_attention", label, dtype,
             fa.flash_attention(q, k, v, causal=causal, window=win),
@@ -469,8 +501,34 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
              "library_ms": lib},
             4.0 * B * H * Dh * pairs,
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+        if fa.routes[route] == before:
+            raise AssertionError(f"flash_attention {label}: no launch on "
+                                 f"the {route} route")
+        row["route"] = route
+        if route == "wgmma":
+            row["simt_ms"] = time_ms(torch, lambda: simt_attention(
+                torch, q, k, v, causal, win), flush)
         if case == ATTN_MAIN:
             entries["flash_attention"] = row
+    err = 0.0
+    for B, S, H, KV, Dh, causal, win in FA_INSTANCES:
+        q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, KV, Dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, KV, Dh, generator=gen, device=dev).bfloat16()
+        before = fa.routes["wgmma"]
+        got = fa.flash_attention(q, k, v, causal=causal, window=win)
+        want = attention_ref(q, k, v, causal=causal, window=win)
+        diff = (got.float() - want.float()).abs()
+        err = max(err, diff.max().item())
+        if fa.routes["wgmma"] != before + 1 or not bool(
+                (diff <= 2e-2 + 2e-2 * want.float().abs()).all()):
+            raise AssertionError(f"flash_attention wgmma instance Dh {Dh} "
+                                 f"B{B} S{S} H{H}/{KV} window {win}: route "
+                                 f"{fa.route(q, k, v)}, max abs err "
+                                 f"{diff.max().item()}")
+    print(f"flash_attention wgmma instances: Dh 64, 128, 256 at B2 S333 "
+          f"H20/2 causal window 100 bf16 held to the plain version, max abs "
+          f"err {err}")
 
     # K4: y and S against the plain recurrence.  No single PyTorch call
     # computes WKV6, so there is no library time.  The least work is
@@ -621,6 +679,7 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             "library_ms": r["library_ms"],
             **({"library": r["library"]} if "library" in r else {}),
             **({"dispatch": r["route"]} if "route" in r else {}),
+            **({"simt_ms": r["simt_ms"]} if "simt_ms" in r else {}),
             **({"host_us_per_call": r["host_us_per_call"]}
                if "host_us_per_call" in r else {})})
     return sweep, kernels
@@ -739,7 +798,11 @@ LM_PHASES = {
           "prompts": [(1, 77), (1, 256), (1, 511), (1, 1000), (2, 128)],
           "check_s": (77, 1000), "fp32_layers": 4,
           "norms_per_pass": 36 * 4 + 1,        # ln1, ln2, q/k-norm; ln_f
-          "per_prefill": {"flash_attention": 36}},
+          "per_prefill": {"flash_attention": 36},
+          # launches by route: bf16 serving runs only the tensor-core
+          # kernels
+          "routes_per_prefill": {"flash_attention": {"wgmma": 36,
+                                                     "simt": 0}}},
     "e": {"arch": "rwkv6-3b",
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 1000), "fp32_layers": 4,
@@ -749,15 +812,17 @@ LM_PHASES = {
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 2100), "fp32_layers": 6,
           "norms_per_pass": 26 * 2 + 1,        # ln/ln1, ln2; ln_f
-          "per_prefill": {"rglru": 18, "flash_attention": 8}},
+          "per_prefill": {"rglru": 18, "flash_attention": 8},
+          "routes_per_prefill": {"flash_attention": {"wgmma": 8,
+                                                     "simt": 0}}},
     "g": {"arch": "olmoe-1b-7b",
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 1000), "fp32_layers": 4,
           "norms_per_pass": 16 * 2 + 1,        # ln1, ln2; ln_f
           "per_prefill": {"flash_attention": 16},
           "per_pass": {"grouped_matmul": 16 * 3},    # gate, up, down
-          # the grouped matmul's launches per pass by route: bf16 serving
-          # runs only the tensor-core kernel
+          "routes_per_prefill": {"flash_attention": {"wgmma": 16,
+                                                     "simt": 0}},
           "routes_per_pass": {"grouped_matmul": {"wgmma": 16 * 3,
                                                  "simt": 0}}},
 }
@@ -919,12 +984,16 @@ def phase_lm(torch, dev, card, counted, spec):
                 f"{cfg.name}: {name} launched {launches[name]} times, not "
                 f"{n} ({len(batches)} prefills, {LM_DECODE} decode steps "
                 f"each)")
-    routed = spec.get("routes_per_pass", {})
-    for name, per_pass in routed.items():
+    # launches by route, per prefill or per pass
+    routed = {name: {r: n * len(batches) for r, n in per.items()}
+              for name, per in spec.get("routes_per_prefill", {}).items()}
+    routed.update({name: {r: n * passes for r, n in per.items()}
+                   for name, per in spec.get("routes_per_pass", {}).items()})
+    for name, n_by_route in routed.items():
         got = dict(counted[name].routes)
-        if got != {r: n * passes for r, n in per_pass.items()}:
+        if got != n_by_route:
             raise AssertionError(f"{cfg.name}: {name} launches by route "
-                                 f"{got}, not {per_pass} per pass")
+                                 f"{got}, not {n_by_route}")
         print(f"lm serve {cfg.name}: {name} launches by route {got}")
     if "grouped_matmul" in routed:
         # every grouped-matmul shape this run served is a bf16 row of
@@ -1013,7 +1082,8 @@ def phase_lm(torch, dev, card, counted, spec):
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg32.dtype, cfg32.n_layers, S,
                         _teacher_forced(torch, model, cfg32, p32, x)))
-    # the fp32 copy runs every grouped matmul on the SIMT route
+    # the fp32 copy runs every grouped matmul and flash attention on the
+    # SIMT route
     for name, before in routes_before.items():
         got = {r: n - before[r] for r, n in counted[name].routes.items()}
         if got["wgmma"] != 0 or got["simt"] == 0:

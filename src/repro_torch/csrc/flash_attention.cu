@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): online-softmax GQA attention with
-// causal and sliding-window masks, fp32 arithmetic, output in q's dtype.
+// causal and sliding-window masks, fp32 accumulation, output in q's dtype.
 //   q (B,S,H,Dh), k/v (B,S,KV,Dh) -> o (B,S,H,Dh); query head h reads KV
 //   head h / (H/KV).
 //
@@ -8,40 +8,88 @@
 // grid whose innermost kv axis carries the running max, sum and
 // accumulator in VMEM scratch).
 //
+// Both routes keep the Pallas recurrence: scores scaled by 1/sqrt(Dh),
+// masked scores NEG_INF = -1e30 (the wgmma route masks with -inf under a
+// running max that starts at NEG_INF: the same max), masked probabilities
+// exactly 0, the denominator clamped at 1e-30 (a fully masked row comes
+// out 0).  A block
+// walks only the key tiles that some of its rows attend (causal: up to its
+// last row; window: from its first row minus the window); a skipped tile
+// would give alpha = 1 and p = 0, so the skip is exact.  Keys are walked
+// in a fixed order, with no split over keys and no atomics, so two calls
+// give the same bits.
+//
 // What bounds it on an H100: operations.  At the serving shapes (qwen3-8b,
 // S = 1000, causal, bf16) a call does ~8.2 GFLOP of products against
 // ~20 MB of q/k/v/o, about 400 operations per byte, above the card's
 // ratio of tensor-core rate to memory rate; its least time is set by the
-// 989 TFLOP/s bf16 rate.  This kernel runs the products as plain fp32
-// FMAs (the fp32 contract of 5e-5 allows no TF32), so the rate it can
-// reach is the 67 TFLOP/s fp32 SIMT rate; tensor cores for bf16 are later
-// work.
+// 989 TFLOP/s bf16 rate.  Two routes, chosen by the wrapper before it
+// launches (kernels/flash_attention/flash_attention.py, route()):
 //
-// Design: one 256-thread block per (64 query rows, head, batch).  The
-// block's 64 query rows are staged once in shared memory as fp32; the
-// block then walks 64-key tiles of k and v through shared memory.  Each
-// thread owns 4 query rows and, for the 64x64 score tile, 4 keys strided
-// by 16, so the 16 threads of a row group are one half warp and the row
-// max and row sum are warp shuffles.  Probabilities go through a
-// shared-memory tile that the same half warp reads back for the value
-// product; each thread accumulates its 4 rows by 4 contiguous columns
-// out of every 64.  The running max, sum and per-row rescale are those of
-// the Pallas recurrence (NEG_INF = -1e30, masked probabilities zeroed,
-// denominator clamped at 1e-30), so a fully masked row comes out 0.
-// Unlike the TPU's dense grid, the block walks only the key tiles that
-// some of its rows attend (causal: up to its last row; window: from its
-// first row minus the window): a skipped tile would give alpha = 1 and
-// p = 0, so the skip is exact.  The ragged edge (S not a multiple of 64)
-// is masked: rows and keys past S are zero-filled and masked.  q, k and v
+// "wgmma", bf16 q/k/v with Dh 64, 128 or 256 that TMA can read (innermost
+// stride 1, other strides and the bases 16-byte aligned): the whole bf16 LM
+// prefill path.  Both products run on the tensor cores (wgmma, fp32
+// accumulators), fed by TMA, which leaves the softmax on the SIMT units as the
+// other cost.  One 384-thread block per (128 query rows, head, batch): a
+// producer warpgroup whose one thread issues the TMA loads and two consumer
+// warpgroups of 64 query rows each (setmaxnreg moves registers from the
+// producer, 24, to the consumers, 240: setmaxnreg acts per warpgroup, so the
+// producer is a whole warpgroup, not one warp). ptxas nonetheless compiles the
+// consumers within about the launch bound's 168 registers a thread (the
+// highest register in the SASS is R165 at Dh 256), so at Dh 256, where O alone
+// takes 128, the instance spills and ptxas serializes its wgmmas.  q, k and v
+// are read through 4-D tensor maps (Dh, S, heads, B), so a box never crosses a
+// head or batch edge and rows past S arrive as zeros; boxes are one 64-column,
+// 128-byte swizzle atom wide (Dh 128 is two atoms, Dh 256 four).  Q is loaded
+// once; K/V tiles of BK keys (128 for Dh <= 128; 32 for Dh 256, to keep S and
+// P small beside O) walk a ring of 2 stages (3 at Dh 256) with a full and an
+// empty mbarrier per stage (shared memory 81 KB at Dh 64, 161 KB at Dh 128 and
+// 256).  Per tile a consumer warpgroup runs S = Q K^T (A = Q and B = K both
+// K-major from shared memory, N = BK, the depth Dh in k16 steps across the
+// atoms), then the online softmax on the accumulator fragment: a row's values
+// lie on the 4 threads of a quad, so two shuffles give its max; log2(e) is
+// folded into the scale and the exponentials are exp2f; the masks are
+// evaluated only on tiles that cross the diagonal, the window edge or S. P is
+// rounded to bf16 pairs, which are, register for register, the A-operand
+// fragment of the next product (the m64nNk16 accumulator of 16 key columns has
+// the A fragment's layout), so O += P V is a register-A wgmma with V MN-major
+// from shared memory and N = Dh: P never touches shared memory.  The row sums
+// stay in fp32 (unrounded p), per thread, and are summed over the quad at the
+// end.  Rounding P to bf16 is the one rounding the Pallas kernel (P in fp32)
+// does not make: at most 2^-9 of each probability.  Each product is waited for
+// (wgmma_wait<0>, then register fences) before its accumulators are read: with
+// a group left in flight ptxas moved accumulator reads above the wait in the
+// grouped matmul (csrc/grouped_matmul.cu).  The two consumer warpgroups
+// overlap each other's softmax with their products; overlapping one tile's
+// softmax with the next tile's products inside a warpgroup is not done.  The
+// epilogue divides O by the row sum, rounds to bf16, and writes the contiguous
+// (B,S,H,Dh) output through shared memory with 16-byte stores; rows past S are
+// not written.  Blocks take the heads along grid x and the query tiles, last
+// first, along y: the dispatcher walks x fastest, so causal blocks go out
+// heaviest first over all heads.
+//
+// "simt", every other call (fp32, whose contract allows no TF32; Dh 8,
+// 12, 16, 32 and 80; strided views TMA cannot read): plain fp32 FMAs at
+// the 67 TFLOP/s fp32 SIMT rate.  One 256-thread block per (64 query rows,
+// head, batch).  The block's 64 query rows are staged once in shared
+// memory as fp32; the block then walks 64-key tiles of k and v through
+// shared memory.  Each thread owns 4 query rows and, for the 64x64 score
+// tile, 4 keys strided by 16, so the 16 threads of a row group are one
+// half warp and the row max and row sum are warp shuffles.  Probabilities
+// go through a shared-memory tile that the same half warp reads back for
+// the value product; each thread accumulates its 4 rows by 4 contiguous
+// columns out of every 64.  The ragged edge (S not a multiple of 64) is
+// masked: rows and keys past S are zero-filled and masked.  q, k and v
 // are read through their batch, sequence and head strides (last axis
 // contiguous), so the projections' (B,S,H,Dh) outputs go in without a
-// transposed copy.  Every sum runs in a fixed order (no split over keys,
-// no atomics), so results are deterministic.  Dh is a template parameter
-// (8, 12, 16, 32, 64, 80, 128, 256); above 48 KB the shared tiles are
-// dynamic shared memory (Dh 256 takes 210 KB, one block per SM).
+// transposed copy.  Dh is a template parameter (8, 12, 16, 32, 64, 80,
+// 128, 256); above 48 KB the shared tiles are dynamic shared memory (Dh
+// 256 takes 210 KB, one block per SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -323,12 +371,366 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+
+namespace wg {
+
+constexpr int BQ = 128;           // query rows per block: two warpgroups of 64
+constexpr int THREADS = 384;      // producer warpgroup + two consumers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int SMEM_LIMIT = 232448;           // per block on an H100
+constexpr int ROW = 128;          // bytes of one swizzled row: 64 bf16
+
+template <int DH>
+struct Cfg {
+  static constexpr int NA = DH / 64;               // swizzle atoms across Dh
+  // keys per tile and K/V ring depth: at Dh 256 O takes 128 registers a
+  // thread, and 32-key tiles keep S and P small (64-key tiles spilled
+  // more, and were slower on the card)
+  static constexpr int BK = DH <= 128 ? 128 : 32;
+  static constexpr int STAGES = DH <= 128 ? 2 : 3;
+  static constexpr int Q_BOX = BQ * ROW;           // one atom of Q
+  static constexpr int KV_BOX = BK * ROW;          // one atom of a K/V tile
+  static constexpr int Q_BYTES = NA * Q_BOX;
+  static constexpr int K_BYTES = NA * KV_BOX;
+  static constexpr int STAGE = 2 * K_BYTES;        // K, then V
+  static constexpr int LDO = DH + 8;      // epilogue tile row, bf16 (16-byte
+                                          // padded: no bank conflicts)
+  // 1024 bytes of slack to align Q and the ring (swizzle atoms start
+  // 1024-aligned), then a full and an empty mbarrier per stage and Q's
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1);
+  static_assert(DH % 64 == 0 && NA <= 4, "Dh 64, 128 or 256");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+  static_assert(BQ * LDO * 2 <= STAGES * STAGE, "epilogue tile too large");
+};
+
+// the key range [lo, hi) that some query row in [q_first, q_last] attends
+__device__ __forceinline__ void key_range(int q_first, int q_last, int S,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  lo = 0;
+  hi = S;
+  if (causal) hi = min(hi, q_last + 1);
+  if (window >= 0) {
+    lo = max(lo, q_first - window + 1);
+    if (!causal) hi = min(hi, q_last + window);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The online-softmax step on one tile's score fragment s (64 x BK; this
+// thread's rows r0 and r0 + 8, columns k0 + 8 (q / 4) + c + q % 2): s
+// becomes p = exp2(s log2(e) / sqrt(Dh) - m_new), m becomes m_new, alpha
+// the factor for O, and l (this thread's partial row sums) is rescaled and
+// takes p.  MASK: evaluate the masks (a tile that crosses the diagonal,
+// the window edge or S).  A masked score is -inf here, not NEG_INF: the
+// running max starts at NEG_INF, so it is the Pallas kernel's max all the
+// same, it stays finite, and exp2f(-inf - m) is exactly the Pallas
+// kernel's masked 0, even in a row masked so far (m = NEG_INF), without a
+// second pass over the masks.
+template <bool MASK, int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int r0, int k0, int c, int S,
+                                             int causal, int window,
+                                             float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int q = 0; q < BK / 2; ++q) {
+    const int i = (q >> 1) & 1;
+    float x = s[q] * scale_log2;
+    if (MASK && !attends(r0 + 8 * i, k0 + 8 * (q >> 2) + c + (q & 1), S,
+                         causal, window))
+      x = __int_as_float(0xff800000);         // -inf
+    s[q] = x;
+    mx[i] = fmaxf(mx[i], x);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = exp2f(m[i] - mx[i]);
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int q = 0; q < BK / 2; ++q) {
+    const int i = (q >> 1) & 1;
+    s[q] = exp2f(s[q] - m[i]);
+    l[i] += s[q];
+  }
+}
+
+// S = Q K^T over the depth DH: k16 steps of 32 bytes inside each 128-byte
+// swizzle atom, atom after atom
+template <int DH, int BK>
+__device__ __forceinline__ void qk_products(float* sacc, const uint8_t* qw,
+                                            const uint8_t* kt) {
+  using K = Cfg<DH>;
+#pragma unroll
+  for (int a = 0; a < K::NA; ++a) {
+    const uint64_t dq = hopper::desc_sw128(qw + a * K::Q_BOX, 16, 1024);
+    const uint64_t dk = hopper::desc_sw128(kt + a * K::KV_BOX, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_bf16<BK, 0, 0>(sacc, dq + (k * 32 >> 4),
+                                   dk + (k * 32 >> 4));
+  }
+}
+
+// tq, tk, tv: q, k, v as (Dh, S, heads, B) maps, boxes of 64 x BQ (q) or
+// 64 x BK (k, v).  Block (head, query tile from the last, batch).
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int S, int H, int groups,
+                int causal, int window, float scale_log2) {
+  using K = Cfg<DH>;
+  constexpr int BK = K::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = qs + K::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::STAGES * K::STAGE);
+  uint64_t* empty = full + K::STAGES;
+  uint64_t* qbar = empty + K::STAGES;
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.z;
+  int k_lo, k_hi;
+  key_range(q0, min(q0 + BQ, S) - 1, S, causal, window, k_lo, k_hi);
+  const int t_lo = k_lo / BK;
+  const int t_hi = (k_hi + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);       // the consumers' 8 warps
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread loads Q, then keeps the K/V ring full
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const int kvh = h / groups;
+      hopper::mbar_arrive_expect_tx(qbar, K::Q_BYTES);
+      for (int a = 0; a < K::NA; ++a)
+        hopper::tma_load_4d(qs + a * K::Q_BOX, &tq, qbar, 64 * a, q0, h, b);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = t_lo; t < t_hi; ++t) {
+        hopper::mbar_wait(&empty[s], phase ^ 1);   // round 0 passes
+        uint8_t* st = ring + s * K::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], K::STAGE);
+        for (int a = 0; a < K::NA; ++a) {
+          hopper::tma_load_4d(st + a * K::KV_BOX, &tk, &full[s], 64 * a,
+                              t * BK, kvh, b);
+          hopper::tma_load_4d(st + K::K_BYTES + a * K::KV_BOX, &tv, &full[s],
+                              64 * a, t * BK, kvh, b);
+        }
+        if (++s == K::STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns query rows q0 + 64 w .. + 63; this thread
+  // rows r0 and r0 + 8 of them, columns c, c + 1 of every 8
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int ct = threadIdx.x - 128;
+  const int w = ct / 128;
+  const int t = ct % 128;
+  const int wq0 = q0 + 64 * w;
+  const int r0 = wq0 + 16 * (t / 32) + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+  const bool active = wq0 < S;
+  const int wq_last = min(wq0 + 63, S - 1);
+  int wk_lo, wk_hi;
+  key_range(wq0, wq_last, S, causal, window, wk_lo, wk_hi);
+  const uint8_t* qw = qs + w * 64 * ROW;
+
+  float oacc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(qbar, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int tt = t_lo; tt < t_hi; ++tt) {
+    const int k0 = tt * BK;
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* st = ring + s * K::STAGE;
+    // a tile none of this warpgroup's rows attends is skipped (exact)
+    if (active && k0 < wk_hi && k0 + BK > wk_lo) {
+      float sacc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+      hopper::fence_regs(sacc);
+      hopper::wgmma_fence();
+      qk_products<DH, BK>(sacc, qw, st);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+
+      // masks only where some (row, key) pair of the tile is not attended
+      const bool interior =
+          k0 + BK <= S && (!causal || k0 + BK - 1 <= wq0) &&
+          (window < 0 || (wq_last - k0 < window &&
+                          (causal || k0 + BK - 1 - wq0 < window)));
+      float alpha[2];
+      if (interior)
+        softmax_tile<false, BK>(sacc, m, l, alpha, r0, k0, c, S, causal,
+                                window, scale_log2);
+      else
+        softmax_tile<true, BK>(sacc, m, l, alpha, r0, k0, c, S, causal,
+                               window, scale_log2);
+      // P as bf16 pairs: the A fragment of k16 step j is accumulator
+      // entries 8 j .. 8 j + 7
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[j][e] = pack_bf16(sacc[8 * j + 2 * e], sacc[8 * j + 2 * e + 1]);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+      hopper::fence_regs(oacc);
+      hopper::wgmma_fence();
+      // V tile: BK rows of keys, atom a holds columns 64 a .. + 63; a k16
+      // step is 16 rows (2048 bytes), atoms KV_BOX bytes apart (LBO)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        hopper::wgmma_bf16_rs<DH, 1>(
+            oacc, pa[j],
+            hopper::desc_sw128(st + K::K_BYTES + j * 16 * ROW, K::KV_BOX,
+                               1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+    }
+    if ((ct & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    if (++s == K::STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  // epilogue: O / l rounded to bf16 into the ring (both warpgroups are
+  // past their last product), then rows of 16-byte stores
+  float denom[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    denom[i] = fmaxf(l[i], 1e-30f);
+  }
+  hopper::named_bar_sync(1, 256);
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+  const int tr = r0 - q0;
+#pragma unroll
+  for (int q = 0; q < DH / 2; q += 2) {
+    const int i = (q >> 1) & 1;
+    const int col = 8 * (q >> 2) + c;
+    *reinterpret_cast<uint32_t*>(tile + (tr + 8 * i) * K::LDO + col) =
+        pack_bf16(oacc[q] / denom[i], oacc[q + 1] / denom[i]);
+  }
+  hopper::named_bar_sync(1, 256);
+  constexpr int CHUNKS = DH / 8;               // 16-byte chunks per row
+  for (int i = ct; i < BQ * CHUNKS; i += 256) {
+    const int r = i / CHUNKS, qp = q0 + r;
+    if (qp < S)
+      *reinterpret_cast<uint4*>(
+          o + ((static_cast<long long>(b) * S + qp) * H + h) * DH +
+          (i % CHUNKS) * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * K::LDO +
+                                          (i % CHUNKS) * 8);
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <int DH>
+int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
+              int S, int H, int KV, const long long* st, int causal,
+              int window, float scale, cudaStream_t stream) {
+  using K = Cfg<DH>;
+  // once per device: the consumers' 240 registers exist only if ptxas gave
+  // every thread its share of the 64K (setmaxnreg redistributes them), and
+  // the shared memory above 48 KB must be opted into
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, fa_wgmma_kernel<DH>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (a.numRegs * THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    err = cudaFuncSetAttribute(fa_wgmma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               K::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  // encoded on the host at every call, passed by value
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::encode_bf16_4d_sw128(&tq, q, DH, S, H, B, st[1], st[2],
+                                        st[0], 64, BQ);
+  if (rc != 0) return rc;
+  rc = hopper::encode_bf16_4d_sw128(&tk, k, DH, S, KV, B, st[4], st[5], st[3],
+                                    64, K::BK);
+  if (rc != 0) return rc;
+  rc = hopper::encode_bf16_4d_sw128(&tv, v, DH, S, KV, B, st[7], st[8], st[6],
+                                    64, K::BK);
+  if (rc != 0) return rc;
+  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  fa_wgmma_kernel<DH><<<grid, THREADS, K::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, H / KV, causal,
+      window, scale * 1.4426950408889634f);    // log2(e) folded in
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KV, int Dh, const long long* st, int causal,
+           int window, float scale, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch_dh<64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+    case 128: return launch_dh<128>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+    case 256: return launch_dh<256>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // C entry points, bound with ctypes.  Strides are in elements: st holds
 // (batch, seq, head) strides of q, then k, then v; the last axis of each
 // is contiguous.  o is a contiguous (B,S,H,Dh) tensor.  window < 0 means
-// no window; causal is 0 or 1.
+// no window; causal is 0 or 1.  Each returns cudaGetLastError() after the
+// launch, or the error that kept it from launching.  The first two are the
+// SIMT route, the third the wgmma route (bf16, Dh 64, 128 or 256, strides
+// multiples of 8 elements, bases 16-byte aligned).
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int Dh, const long long* st, int causal, int window,
@@ -343,4 +745,12 @@ extern "C" int repro_flash_attention_bf16(
     float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, Dh, st, causal,
                                window, scale, stream);
+}
+
+extern "C" int repro_flash_attention_bf16_wgmma(
+    const void* q, const void* k, const void* v, void* o, int B, int S,
+    int H, int KV, int Dh, const long long* st, int causal, int window,
+    float scale, void* stream) {
+  return wg::launch(q, k, v, o, B, S, H, KV, Dh, st, causal, window, scale,
+                    stream);
 }

@@ -48,6 +48,9 @@ SIGNATURES = {
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(_LL), _I, _I,
                                    ctypes.c_float, _P],
+    "repro_flash_attention_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, ctypes.POINTER(_LL), _I, _I,
+                                         ctypes.c_float, _P],
     # r, k, v, w, u (fp32), y, S, B, T, H, D, 12 strides, stream
     "repro_wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        ctypes.POINTER(_LL), _P],
@@ -155,6 +158,15 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def tma_readable(t) -> bool:
+    """Innermost stride 1, the others positive and 16-byte multiples (8
+    bf16), the base 16-byte aligned: what a TMA tensor map of bf16 over
+    the tensor ``t`` takes (``csrc/hopper.cuh``)."""
+    s = t.stride()
+    return (s[-1] == 1 and all(x > 0 and x % 8 == 0 for x in s[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def check(rc: int, what: str) -> None:

@@ -2,9 +2,12 @@
 sliding-window masks, fp32 arithmetic, output in q's dtype.
 
 q is (B,S,H,Dh) and k/v are (B,S,KV,Dh) with H % KV == 0; query head h
-reads KV head ``h // (H // KV)``.  CUDA tensors launch the hand-written
-kernel in ``csrc/flash_attention.cu``, reading q/k/v through their
-strides; CPU tensors run the plain versions of
+reads KV head ``h // (H // KV)``.  CUDA tensors launch one of the two
+hand-written kernels in ``csrc/flash_attention.cu``, as :func:`route`
+picks before the launch: the tensor-core kernel (``"wgmma"``, bf16 q/k/v
+with Dh 64, 128 or 256 that TMA can read) or the SIMT kernel
+(``"simt"``, everything else), both reading q/k/v through their strides.
+CPU tensors run the plain versions of
 :mod:`~repro_torch.kernels.flash_attention.ref` (the chunked form beyond
 1024 positions, the exact one below).
 """
@@ -21,18 +24,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_chunked,
                                                      attention_ref)
 
-_ENTRY = {torch.float32: "repro_flash_attention_f32",
-          torch.bfloat16: "repro_flash_attention_bf16"}
-HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the kernel's Dh instances
-_MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
+_ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
+          ("simt", torch.bfloat16): "repro_flash_attention_bf16",
+          ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
+HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dh
+WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernel's Dh
+_MAX_GRID = 65535          # gridDim.y / gridDim.z limit
 # beyond which the exact O(S^2) plain version gives way to the chunked one
 CHUNKED_THRESHOLD = 1024
 
 launches = 0               # kernel launches since the last reset
+routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"flash_attention takes fp32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -52,6 +59,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head width {Dh} is not one of {HEAD_DIMS}")
 
 
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that a CUDA call of :func:`flash_attention` on these
+    operands launches: ``"wgmma"`` for bf16 q/k/v with Dh 64, 128 or 256
+    that TMA can read (innermost stride 1, other strides and the bases
+    16-byte aligned), ``"simt"`` for everything else.  Pure: reads only
+    dtypes, shapes, strides and data pointers, so it answers for CPU
+    tensors too."""
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in WGMMA_HEAD_DIMS
+            and all(_build.tma_readable(t) for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -66,8 +87,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     B, S, H, Dh = q.shape
     KV = k.shape[2]
-    if H > _MAX_GRID or B > _MAX_GRID:
-        raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
+    r = route(q, k, v)
+    # grid y: the heads (simt) or the 128-row query tiles (wgmma); z: batch
+    if max(H if r == "simt" else -(-S // 128), B) > _MAX_GRID:
+        raise ValueError(f"B={B}, S={S}, H={H}: a grid axis exceeds "
+                         f"{_MAX_GRID} on the {r} route")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -79,11 +103,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         launches += 1
-        rc = getattr(lib, _ENTRY[q.dtype])(
+        routes[r] += 1
+        rc = getattr(lib, _ENTRY[r, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, H, KV, Dh, strides, int(causal),
             # a window of S or more masks nothing: clamped, it fits an int
             -1 if window is None else min(int(window), S),
             1.0 / math.sqrt(Dh), stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({r})")
     return out

@@ -38,14 +38,6 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
 
 
-def _tma_readable(t: torch.Tensor) -> bool:
-    """Innermost stride 1, the others positive and 16-byte multiples (8
-    bf16), the base 16-byte aligned: what a TMA tensor map of bf16 takes."""
-    s0, s1, s2 = t.stride()
-    return (s2 == 1 and s0 > 0 and s1 > 0 and s0 % 8 == 0 and s1 % 8 == 0
-            and t.data_ptr() % 16 == 0)
-
-
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel that a CUDA call of :func:`grouped_matmul` on these
     operands launches: ``"wgmma"`` for bf16 operands that TMA can read
@@ -55,7 +47,8 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
     answers for CPU tensors too."""
     D, F = x.shape[2], w.shape[2]
     if (x.dtype == w.dtype == torch.bfloat16 and D > 0 and D % 8 == 0
-            and F % 8 == 0 and _tma_readable(x) and _tma_readable(w)):
+            and F % 8 == 0 and _build.tma_readable(x)
+            and _build.tma_readable(w)):
         return "wgmma"
     return "simt"
 

@@ -25,7 +25,8 @@ def test_only_the_cu_files_are_compiled(csrc):
     assert not set(_build.sources()) & set(_build.headers())
 
 
-@pytest.mark.parametrize("name", ["hopper.cuh", "grouped_matmul.cu"])
+@pytest.mark.parametrize("name", ["hopper.cuh", "grouped_matmul.cu",
+                                  "flash_attention.cu"])
 def test_library_path_follows_an_edit(csrc, name):
     before = _build.library_path()
     assert _build.library_path() == before

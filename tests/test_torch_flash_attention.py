@@ -2,8 +2,11 @@
 against the Pallas kernel in interpret mode over the sweep of
 tests/test_kernels.py, the chunked form against the exact one, and the
 shapes the Pallas kernel cannot take (ragged S, Dh = 80) against the JAX
-package's exact reference.  Inputs are made with numpy from a seed and
-given to both packages."""
+package's exact reference.  Then the route a CUDA call would take, and a
+model of the tensor-core kernel's rounding held to the same references.
+Inputs are made with numpy from a seed and given to both packages."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +17,9 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import flash_attention as tfa
-from repro_torch.kernels.flash_attention.ref import (attention_chunked,
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                     attention_chunked,
+                                                     attention_mask,
                                                      attention_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -121,3 +126,94 @@ def test_rejects_negative_window():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q, window=-1)
+
+
+def _bf16(*shape, offset=0):
+    """A bf16 tensor of ``shape`` whose data starts ``offset`` elements
+    into its buffer (rows of the last axis contiguous)."""
+    n = math.prod(shape)
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_route_takes_wgmma_for_bf16_serving_shapes(Dh):
+    q, k = _bf16(1, 77, 32, Dh), _bf16(1, 77, 8, Dh)
+    assert tfa.route(q, k, k) == "wgmma"
+    # head slices of one fused projection: strides and offsets of 8 bf16
+    qkv = _bf16(2, 100, 12, Dh)
+    assert tfa.route(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]) \
+        == "wgmma"
+
+
+@pytest.mark.parametrize("what", ["fp32", "Dh 80", "Dh 12", "last stride 2",
+                                  "head stride 68", "odd element offset",
+                                  "k alone misaligned"])
+def test_route_takes_simt_for_the_rest(what):
+    q, k = _bf16(1, 64, 4, 64), _bf16(1, 64, 2, 64)
+    if what == "fp32":
+        q, k = q.float(), k.float()
+    elif what in ("Dh 80", "Dh 12"):
+        dh = int(what.split()[1])
+        q, k = _bf16(1, 64, 4, dh), _bf16(1, 64, 2, dh)
+    elif what == "last stride 2":
+        q = _bf16(1, 64, 4, 128)[..., ::2]
+    elif what == "head stride 68":
+        q = _bf16(1, 64, 4, 68)[..., :64]
+    elif what == "odd element offset":
+        q = _bf16(1, 64, 4, 64, offset=1)
+    else:
+        k = _bf16(1, 64, 2, 64, offset=4)     # 8 bytes: not 16-aligned
+    assert tfa.route(q, k, k) == "simt"
+
+
+def _wgmma_model(q, k, v, causal, window):
+    """The tensor-core kernel's rounding, in fp32 on the CPU: the
+    unnormalised probabilities p = exp(s - max) rounded to bf16 before
+    P.V (the kernel's A operand), the row sums of the unrounded p, the
+    output rounded to q's dtype.  Not the kernel's order of sums."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    qh = q.float().reshape(B, S, KV, H // KV, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) / math.sqrt(Dh)
+    pos = torch.arange(S)
+    mask = attention_mask(pos, pos, causal, window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    ctx = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(),
+                       v.float()) / l
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+# B, S, H, KV, Dh, causal, window, block: the sweep's bf16 case, then
+# qwen3-8b's GQA 4:1 at Dh 128, narrowed to S 256
+MODEL_VS_PALLAS = [
+    (1, 128, 4, 2, 64, True, None, 64),
+    (1, 256, 8, 2, 128, True, None, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win,block", MODEL_VS_PALLAS)
+def test_wgmma_rounding_within_pallas_tolerance(B, S, H, KV, Dh, causal, win,
+                                                block):
+    """P in bf16 (the tensor-core P.V) stays within the reference's own
+    bf16 tolerance of the Pallas kernel, which keeps P in fp32."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(4, B, S, H, KV, Dh, "bfloat16")
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=win,
+                                  block_q=block, block_k=block,
+                                  interpret=True)
+    got = _wgmma_model(tq, tk, tv, causal, win)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+def test_wgmma_rounding_within_tolerance_at_dh256_window():
+    """recurrentgemma-2b's Dh 256 local attention narrowed to S 320 and a
+    window of 64 (S is no multiple of the Pallas kernel's block, so the
+    JAX package's exact reference holds it)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(5, 1, 320, 4, 1, 256, "bfloat16")
+    want = jax_ref(jq, jk, jv, causal=True, window=64)
+    got = _wgmma_model(tq, tk, tv, True, 64)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])

@@ -118,14 +118,79 @@ ATTN_CASES = [
 @pytest.mark.parametrize("B,S,H,KV,Dh,causal,win", ATTN_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, Dh, causal,
                                               win, dtype):
+    """Each call launches once, on the route route() names: bf16 with Dh
+    64, 128 or 256 on the tensor cores, the rest on the SIMT kernel."""
     q = _randn((B, S, H, Dh), dtype, cuda, 8)
     k = _randn((B, S, KV, Dh), dtype, cuda, 9)
     v = _randn((B, S, KV, Dh), dtype, cuda, 10)
-    before = fa.launches
+    want_route = ("wgmma" if dtype == "bfloat16" and Dh in (64, 128, 256)
+                  else "simt")
+    assert fa.route(q, k, v) == want_route
+    before, routes = fa.launches, dict(fa.routes)
     got = fa.flash_attention(q, k, v, causal=causal, window=win)
     assert fa.launches == before + 1
+    assert fa.routes == {**routes, want_route: routes[want_route] + 1}
     tol = 5e-5 if dtype == "float32" else 2e-2
     _close(got, attention_ref(q, k, v, causal=causal, window=win), tol, tol)
+
+
+# masks of the wgmma instances: (causal, window); the window's non-causal
+# form too
+FA_MASKS = {"causal": (True, None), "window": (True, 48),
+            "bidirectional": (False, None), "window both ways": (False, 40)}
+# S -> (GQA ratio, B): ragged edges of the 128-row query tiles and of the
+# 64- and 128-key tiles, the ratios of qwen3-8b (4) and recurrentgemma-2b
+# (10) and none, one and two sequences
+FA_SHAPES = {1: (1, 2), 63: (4, 1), 65: (10, 2), 129: (1, 1), 1000: (4, 2)}
+
+
+@pytest.mark.parametrize("S", sorted(FA_SHAPES))
+@pytest.mark.parametrize("mask", sorted(FA_MASKS))
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_attention_wgmma_every_instance(cuda, Dh, mask, S):
+    """Each of the wgmma route's kernel instances (Dh 64, 128, 256) held
+    to the plain version under every mask, at ragged S, GQA and B."""
+    causal, win = FA_MASKS[mask]
+    ratio, B = FA_SHAPES[S]
+    KV = 2
+    q = _randn((B, S, ratio * KV, Dh), "bfloat16", cuda, 27)
+    k = _randn((B, S, KV, Dh), "bfloat16", cuda, 28)
+    v = _randn((B, S, KV, Dh), "bfloat16", cuda, 29)
+    assert fa.route(q, k, v) == "wgmma"
+    before = fa.routes["wgmma"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=win)
+    assert fa.routes["wgmma"] == before + 1
+    _close(got, attention_ref(q, k, v, causal=causal, window=win), 2e-2,
+           2e-2)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_attention_wgmma_one_hot_probe(cuda, Dh):
+    """Query row r attends one key t(r) only (score +A^2 / sqrt(Dh) against
+    0 and -A^2 for the rest), and v[s, c] = (7 s + c) mod 255 + 1, so
+    each output names the (key, column) it read and must equal v[t(r), c]
+    bitwise (the other keys' p, at most 2^-92, vanish in rounding beside a
+    value of 1 or more): a wrong P fragment, V descriptor or swizzle shows
+    as the wrong integer."""
+    S, A = 128, 32.0
+    s = torch.arange(S, device=cuda)
+    sign = torch.where(s < 64, 1.0, -1.0)
+    k = torch.zeros(1, S, 1, Dh, device=cuda)
+    k[0, s, 0, s % 64] = A * sign
+    t = (37 * s + 11) % S                      # a permutation of the keys
+    q = torch.zeros(1, S, 1, Dh, device=cuda)
+    q[0, s, 0, t % 64] = A * sign[t]
+    v = ((7 * s[:, None] + torch.arange(Dh, device=cuda)) % 255 + 1).float()
+    q, k, v = (x.bfloat16() for x in (q, k, v[None, :, None, :]))
+    assert fa.route(q, k, v) == "wgmma"
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = v[:, t]
+    bad = (got != want).nonzero().tolist()
+    assert not bad, (f"{len(bad)} outputs differ; first (b, row, head, "
+                     f"col): got / want " + ", ".join(
+                         f"{i}: {got[tuple(i)].item()} / "
+                         f"{want[tuple(i)].item()}" for i in bad[:8]))
 
 
 def test_flash_attention_strided_and_deterministic(cuda):
@@ -135,6 +200,29 @@ def test_flash_attention_strided_and_deterministic(cuda):
     got = fa.flash_attention(q, k, v)
     assert torch.equal(got, fa.flash_attention(q, k, v))
     _close(got, attention_ref(q, k, v), 5e-5, 5e-5)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_attention_wgmma_strided_and_deterministic(cuda, Dh):
+    """bf16 q/k/v as head-slices of one fused projection: the tensor maps
+    read them through their strides, and two calls give the same bits."""
+    qkv = _randn((2, 300, 12, Dh), "bfloat16", cuda, 30)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert fa.route(q, k, v) == "wgmma"
+    before = fa.routes["wgmma"]
+    got = fa.flash_attention(q, k, v)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+    assert fa.routes["wgmma"] == before + 2
+    _close(got, attention_ref(q, k, v), 2e-2, 2e-2)
+
+
+def test_flash_attention_wgmma_olmoe_prefill(cuda):
+    """olmoe-1b-7b's 4096-token prefill: H 16 = KV 16, Dh 128, causal."""
+    q = _randn((1, 4096, 16, 128), "bfloat16", cuda, 31)
+    k = _randn((1, 4096, 16, 128), "bfloat16", cuda, 32)
+    v = _randn((1, 4096, 16, 128), "bfloat16", cuda, 33)
+    assert fa.route(q, k, v) == "wgmma"
+    _close(fa.flash_attention(q, k, v), attention_ref(q, k, v), 2e-2, 2e-2)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-12b", "hubert-xlarge"])
