@@ -12,7 +12,10 @@ seven phases; any mismatch raises, so the script exits non-zero:
     grouped-matmul kernels against their plain torch versions on the
     card, at the serving paths' shapes, and their times (cold L2) beside
     the plain version, the library call (none for the two scans) and the
-    bound; flash attention and the grouped matmul on both of their routes
+    bound; each row names the route its call took (the GEMM's gemv, tile
+    or scalar, at M 1, 8, 16, 32 and 64 and at a misaligned column slice;
+    RMSNorm's warp, block or scalar, at the rows of every served family);
+    flash attention and the grouped matmul on both of their routes
     (the tensor-core kernel, and the SIMT kernel that fp32 and the shapes
     and strides TMA cannot read take), each row naming its route, the
     bf16 flash-attention rows also timed on the SIMT kernel (the design
@@ -27,13 +30,16 @@ seven phases; any mismatch raises, so the script exits non-zero:
     ffn=8960)`` on the card drains launch/serve.py's trace (2 prompts, 4
     decode steps each); every served output is held to ``execute_graph``
     of its bucket graph on CPU tensors at 1e-4, and both kernels must have
-    launched during this phase;
+    launched during this phase; it prints both kernels' launches by route
+    and requires that a GEMM took the scalar route only where no vector
+    route could read its operands;
 (d) LM serving: qwen3-8b at full width and depth (configs/qwen3_8b.py,
     bf16, random weights from a seeded generator) prefills prompts of 77,
     256, 511 and 1000 tokens and a batch of 2 x 128, and greedily decodes
     8 tokens after each; the logits must be finite, flash attention must
     launch once per layer per prefill, on the tensor-core route, and
-    RMSNorm once per norm of each forward pass (prefill or decode step).
+    RMSNorm once per norm of each forward pass (prefill or decode step),
+    the q/k-norm on its warp route and the rest on its block route.
     Then ``decode_step`` fed token S after ``prefill`` of S tokens is held to
     ``prefill`` of S + 1 tokens (the flash-attention path against the
     plain decode attention): in bf16 at full depth, and in fp32 on the
@@ -41,7 +47,8 @@ seven phases; any mismatch raises, so the script exits non-zero:
 (e) recurrent LM serving: rwkv6-3b at full width and depth
     (configs/rwkv6_3b.py, bf16) serves prompts of 77, 256, 1000 and 4096
     tokens and 2 x 128 as phase d does; WKV6 must launch once per layer
-    per prefill and RMSNorm once per norm of each forward pass.  Decode is
+    per prefill and RMSNorm once per norm of each forward pass (the
+    per-head ln_x on the warp route).  Decode is
     held to prefill at S = 77 and 1000 (the WKV6 kernel against the plain
     single-token step), in bf16 at full depth and fp32 on 4 layers.
 (f) hybrid LM serving: recurrentgemma-2b at full width and depth
@@ -89,8 +96,6 @@ ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 HBM_BYTES = 3.35e12        # H100 SXM device memory, bytes/s
-FLUSH_BYTES = 256 << 20    # > the 50 MB L2; zeroed before each timed call
-ITERS = 20
 
 
 def fail(msg: str) -> int:
@@ -142,12 +147,29 @@ def main() -> int:
                "wkv6": wkv, "rglru": scan, "grouped_matmul": gm}
     reset_launches(counted)
     t0 = time.perf_counter()
-    served = phase_serve(torch, dev)
+    served, gemms = phase_serve(torch, dev)
     c_launches = read_launches(counted)
     per_request = {k: v / served for k, v in c_launches.items()}
     print(f"phase c serve: {time.perf_counter() - t0:.2f} s, {served} "
           f"requests served, launches {c_launches}, per request "
           f"{per_request}")
+    # K1's and K2's launches by route; a GEMM takes the scalar route only
+    # where no vector route can read its operands (B 16-byte readable, and
+    # A too unless M <= 8 puts it on gemv), counted here from the served
+    # operands' strides and data pointers
+    c_routes = {"matmul": dict(mm.routes), "rmsnorm": dict(rms.routes)}
+    c_sums = mm.sum_launches
+    print(f"phase c launches by route: {c_routes}; the GEMM's chunk-sum "
+          f"kernel (calls that split K): {c_sums}")
+    unreadable = sum(n for (m, a_ok, b_ok), n in gemms.items()
+                     if not (b_ok and (a_ok or m <= mm.GEMV_MAX_M)))
+    if sum(gemms.values()) != c_launches["matmul"] \
+            or c_routes["matmul"]["scalar"] != unreadable:
+        raise AssertionError(f"phase c: {c_routes['matmul']['scalar']} "
+                             f"GEMMs on the scalar route, {unreadable} of "
+                             f"{sum(gemms.values())} need it")
+    print(f"phase c: {unreadable} GEMMs on the scalar route, none that a "
+          f"vector route could read")
 
     by_path = {"c": c_launches}
     for phase, spec in LM_PHASES.items():
@@ -167,6 +189,8 @@ def main() -> int:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on its path")
+        if k["name"] == "matmul":
+            k["sum_launches"] = c_sums
 
     print(smi[0])
     print(json.dumps({"kernel_sweep": sweep}))
@@ -199,45 +223,17 @@ def ptxas_lines(log: str):
 
 
 def reset_launches(counted) -> None:
-    """Set every kernel wrapper's launch count (and route counts) to 0."""
+    """Set every kernel wrapper's launch count (and route counts, and the
+    GEMM's chunk-sum count) to 0."""
     for mod in counted.values():
         mod.launches = 0
         for route in getattr(mod, "routes", {}):
             mod.routes[route] = 0
+    counted["matmul"].sum_launches = 0
 
 
 def read_launches(counted) -> dict:
     return {name: mod.launches for name, mod in counted.items()}
-
-
-def time_ms(torch, fn, flush) -> float:
-    """Mean device time of ``fn`` with a cold L2: each call runs after a
-    zeroing of a buffer larger than L2, between its own pair of events."""
-    for _ in range(3):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(ITERS)]
-    for start, end in ev:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in ev) / ITERS
-
-
-def host_us_per_call(torch, fn, n=100) -> float:
-    """Host microseconds per call of ``fn``, which only enqueues work: the
-    mean over ``n`` calls, timed without a synchronise, after 3 warm ones."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -352,14 +348,45 @@ def simt_attention(torch, q, k, v, causal, win):
     return out
 
 
+def k1k2_rows(torch, dev, gen, mm, rms, record, entries, flush):
+    """Phase a's GEMM (K1) and RMSNorm (K2) rows (launch/time_k1k2.py's),
+    each on the route its wrapper names, held to its plain version and
+    timed beside the library call, by the spin method and without it, and
+    with the wrapper's host time per call."""
+    from repro_torch.launch.time_k1k2 import (cases, functions, time_ms,
+                                              host_us_per_call, warm_up)
+    warm_up(torch, dev)
+    mods = {"matmul": mm, "rmsnorm": rms}
+    for kernel, case, args, tol, flops, nbytes in cases(torch, dev, gen):
+        mod = mods[kernel]
+        fn, plain, library = functions(torch, kernel)
+        route = mod.route(*args)
+        before = dict(mod.routes)
+        got = fn(*args)
+        if mod.routes != {**before, route: before[route] + 1}:
+            raise AssertionError(f"{kernel} {case}: not one launch on the "
+                                 f"{route} route")
+        row = record(kernel, case, args[0].dtype, got, plain(*args), tol,
+                     {"ms": lambda: fn(*args),
+                      "plain_ms": lambda: plain(*args),
+                      "library_ms": lambda: library(*args)},
+                     flops, nbytes)
+        row["route"] = route
+        row["cold_ms"] = time_ms(torch, lambda: fn(*args), flush, spin=False)
+        row["host_us"] = host_us_per_call(torch, lambda: fn(*args))
+        if (row["dtype"], case) in (("fp32", "64x2560x1280 strided B"),
+                                    ("fp32", "phase c 64x2560")):
+            entries[kernel] = row
+
+
 def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                        attention_ref)
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
-    from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_ref
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+    from repro_torch.launch.time_k1k2 import (FLUSH_BYTES, host_us_per_call,
+                                              time_ms)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     peaks = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
@@ -388,82 +415,7 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
         sweep.append(row)
         return row
 
-    # K1: the runtime slices a weight's columns (strided B, row stride
-    # wider than N) and runs prefill (M = 64) and decode (M = 1) rows
-    for dtype in (torch.float32, torch.bfloat16):
-        for M in (1, 64):
-            for K in (2560, 8960):
-                for N in (48, 1280, 4480):
-                    a = torch.randn(M, K, generator=gen, device=dev).to(dtype)
-                    w = torch.randn(K, N + 64, generator=gen,
-                                    device=dev).to(dtype)
-                    b = w[:, 32:32 + N]
-                    got = mm.matmul(a, b)
-                    want = matmul_ref(a, b)
-                    tol = 1e-4 if dtype == torch.float32 else 5e-2
-                    row = record(
-                        "matmul", f"{M}x{K}x{N} strided B", dtype, got, want,
-                        (tol * math.sqrt(K), tol),
-                        {"ms": lambda: mm.matmul(a, b),
-                         "plain_ms": lambda: matmul_ref(a, b),
-                         "library_ms": lambda: torch.matmul(a, b)},
-                        2.0 * M * N * K,
-                        (M * K + K * N + M * N) * a.element_size())
-                    if (dtype, M, K, N) == (torch.float32, 64, 2560, 1280):
-                        entries["matmul"] = row
-    # batch_matmul against a transposed kT view (transformer_block shape)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(4, 64, 32, generator=gen, device=dev).to(dtype)
-        k = torch.randn(4, 64, 32, generator=gen, device=dev).to(dtype)
-        kt = k.transpose(1, 2)
-        tol = 1e-4 if dtype == torch.float32 else 5e-2
-        record("matmul", "batched 4x(64x32x64) kT view", dtype,
-               mm.matmul(q, kt), matmul_ref(q, kt),
-               (tol * math.sqrt(32), tol),
-               {"ms": lambda: mm.matmul(q, kt),
-                "plain_ms": lambda: matmul_ref(q, kt),
-                "library_ms": lambda: torch.matmul(q, kt)},
-               2.0 * 4 * 64 * 64 * 32,
-               (q.numel() + kt.numel() + 4 * 64 * 64) * q.element_size())
-
-    # K2: the rwkv6 tenant's ln at prefill and decode rows
-    lib_rms = getattr(torch.nn.functional, "rms_norm", None)
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (64, 1):
-            d = 2560
-            x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-            g = torch.randn(d, generator=gen, device=dev).to(dtype)
-            tol = 1e-5 if dtype == torch.float32 else 2e-2
-            row = record(
-                "rmsnorm", f"{rows}x{d}", dtype, rms.rmsnorm(x, g),
-                rmsnorm_ref(x, g), (tol, tol),
-                {"ms": lambda: rms.rmsnorm(x, g),
-                 "plain_ms": lambda: rmsnorm_ref(x, g),
-                 "library_ms": (None if lib_rms is None else
-                                lambda: lib_rms(x, (d,), g, 1e-6))},
-                4.0 * rows * d, (2 * rows * d + d) * x.element_size())
-            if (dtype, rows) == (torch.float32, 64):
-                entries["rmsnorm"] = row
-            # the runtime's rmsnorm without a gain input passes no g
-            record("rmsnorm", f"{rows}x{d} no gain", dtype, rms.rmsnorm(x),
-                   rmsnorm_ref(x), (tol, tol),
-                   {"ms": lambda: rms.rmsnorm(x),
-                    "plain_ms": lambda: rmsnorm_ref(x),
-                    "library_ms": (None if lib_rms is None else
-                                   lambda: lib_rms(x, (d,), None, 1e-6))},
-                   3.0 * rows * d, 2 * rows * d * x.element_size())
-    # K2 on the LM path (qwen3-8b, bf16): ln1/ln2/ln_f rows at prefill
-    # (S = 1000) and decode, and the qk-norm rows of width Dh (B*S*H)
-    for rows, d in ((1000, 4096), (1, 4096), (32000, 128)):
-        x = torch.randn(rows, d, generator=gen, device=dev).bfloat16()
-        g = torch.randn(d, generator=gen, device=dev).bfloat16()
-        record("rmsnorm", f"qwen3-8b {rows}x{d}", torch.bfloat16,
-               rms.rmsnorm(x, g), rmsnorm_ref(x, g), (2e-2, 2e-2),
-               {"ms": lambda: rms.rmsnorm(x, g),
-                "plain_ms": lambda: rmsnorm_ref(x, g),
-                "library_ms": (None if lib_rms is None else
-                               lambda: lib_rms(x, (d,), g, 1e-6))},
-               4.0 * rows * d, (2 * rows * d + d) * x.element_size())
+    k1k2_rows(torch, dev, gen, mm, rms, record, entries, flush)
 
     # K3: each row's bound counts the (query, key) pairs its masks allow
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -681,7 +633,9 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             **({"dispatch": r["route"]} if "route" in r else {}),
             **({"simt_ms": r["simt_ms"]} if "simt_ms" in r else {}),
             **({"host_us_per_call": r["host_us_per_call"]}
-               if "host_us_per_call" in r else {})})
+               if "host_us_per_call" in r else {}),
+            **({"cold_ms": r["cold_ms"], "host_us_per_call": r["host_us"]}
+               if "cold_ms" in r else {})})
     return sweep, kernels
 
 
@@ -745,9 +699,38 @@ def phase_plans(torch, dev):
 # ---------------------------------------------------------------- phase c
 
 
-def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960) -> int:
+def vector_readable(t) -> bool:
+    """Rows that 16-byte loads can read: unit innermost stride, the other
+    strides (of dims longer than 1) and the base in 16-byte units."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0
+        for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960):
     """The rwkv6 tenant at the widths of configs/rwkv6_3b.py beside the
-    vision tenant, one layer deep, random weights from seeds."""
+    vision tenant, one layer deep, random weights from seeds.  Returns the
+    requests served and the runtime's GEMM calls counted by (M, A vector
+    readable, B vector readable)."""
+    from repro_torch.core import runtime as rt
+    gemms = {}
+    gemm = rt._matmul
+
+    def recorded(a, b):
+        if a.is_cuda:                   # not the CPU oracle's GEMMs
+            key = (a.numel() // a.shape[-1] if b.dim() == 2 else a.shape[-2],
+                   vector_readable(a), vector_readable(b))
+            gemms[key] = gemms.get(key, 0) + 1
+        return gemm(a, b)
+    rt._matmul = recorded
+    try:
+        served = _serve(torch, dev, d, ffn)
+    finally:
+        rt._matmul = gemm
+    return served, gemms
+
+
+def _serve(torch, dev, d, ffn) -> int:
     from repro_torch.core import runtime as rt
     from repro_torch.launch.serve import build_engine
     t0 = time.perf_counter()
@@ -800,21 +783,28 @@ LM_PHASES = {
           "norms_per_pass": 36 * 4 + 1,        # ln1, ln2, q/k-norm; ln_f
           "per_prefill": {"flash_attention": 36},
           # launches by route: bf16 serving runs only the tensor-core
-          # kernels
+          # kernels; q/k-norm (width 128) on K2's warp route
           "routes_per_prefill": {"flash_attention": {"wgmma": 36,
-                                                     "simt": 0}}},
+                                                     "simt": 0}},
+          "routes_per_pass": {"rmsnorm": {"warp": 36 * 2, "block": 36 * 2 + 1,
+                                          "scalar": 0}}},
     "e": {"arch": "rwkv6-3b",
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 1000), "fp32_layers": 4,
           "norms_per_pass": 32 * 3 + 1,        # ln1, ln_x, ln2; ln_f
-          "per_prefill": {"wkv6": 32}},
+          "per_prefill": {"wkv6": 32},
+          # the per-head ln_x (width 64) on K2's warp route
+          "routes_per_pass": {"rmsnorm": {"warp": 32, "block": 32 * 2 + 1,
+                                          "scalar": 0}}},
     "f": {"arch": "recurrentgemma-2b",
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 2100), "fp32_layers": 6,
           "norms_per_pass": 26 * 2 + 1,        # ln/ln1, ln2; ln_f
           "per_prefill": {"rglru": 18, "flash_attention": 8},
           "routes_per_prefill": {"flash_attention": {"wgmma": 8,
-                                                     "simt": 0}}},
+                                                     "simt": 0}},
+          "routes_per_pass": {"rmsnorm": {"warp": 0, "block": 26 * 2 + 1,
+                                          "scalar": 0}}},
     "g": {"arch": "olmoe-1b-7b",
           "prompts": [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)],
           "check_s": (77, 1000), "fp32_layers": 4,
@@ -824,7 +814,9 @@ LM_PHASES = {
           "routes_per_prefill": {"flash_attention": {"wgmma": 16,
                                                      "simt": 0}},
           "routes_per_pass": {"grouped_matmul": {"wgmma": 16 * 3,
-                                                 "simt": 0}}},
+                                                 "simt": 0},
+                              "rmsnorm": {"warp": 0, "block": 16 * 2 + 1,
+                                          "scalar": 0}}},
 }
 # decode-vs-prefill tolerance, as the relative L2 error of the logits.
 # bf16, full depth: the two paths round activations to bf16 at different
@@ -1077,7 +1069,8 @@ def phase_lm(torch, dev, card, counted, spec):
     p32 = stacking.tree_map(lambda t: t.float(), p32)
     del params
     torch.cuda.empty_cache()
-    routes_before = {name: dict(counted[name].routes) for name in routed}
+    routes_before = {name: dict(counted[name].routes) for name in routed
+                     if "wgmma" in counted[name].routes}
     for S in spec["check_s"]:
         x = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))).to(dev)
         results.append((cfg32.dtype, cfg32.n_layers, S,
@@ -1120,7 +1113,8 @@ def phase_lm(torch, dev, card, counted, spec):
 
 def _device_busy_s(torch, fn):
     """(seconds the card spent in kernels during one call of ``fn``, the
-    number of kernels, the six costliest kernel names with their ms), from
+    number of kernels, the six costliest kernel names with their ms and
+    last the ms of RMSNorm's kernels), from
     a ``torch.profiler`` trace; busy time is the union of the kernels'
     intervals, so overlapping kernels count once."""
     from torch.autograd import DeviceType
@@ -1142,6 +1136,9 @@ def _device_busy_s(torch, fn):
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # RMSNorm's (K2's) kernels, whatever their rank
+    top += [("K2 rms_*_kernel", sum(t for n, t in by_name.items()
+                                    if "rms_" in n))]
     return busy * 1e-6, len(events), [(n[:60], t * 1e-3) for n, t in top]
 
 

@@ -15,7 +15,9 @@ launch raises.  The CPU path of each wrapper never reaches this module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,12 +37,19 @@ _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream are c_void_p,
 # so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
-    "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _LL, _P],
-    "repro_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I,
-                          _LL, _LL, _LL, _LL, _LL, _LL, _P],
-    "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _P],
-    "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _P],
+    # a, b, c, workspace, batch, M, N, K, a's (batch, row, column)
+    # strides, b's, route, tile (TM, TN), splits, chunk, SMs, stream
+    "repro_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
+                         _LL, _LL, _LL, _LL, _LL, _LL,
+                         _I, _I, _I, _I, _I, _I, _P],
+    "repro_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _LL, _LL,
+                          _I, _I, _I, _I, _I, _I, _P],
+    # x, g, y, rows, d, x's row stride, eps, route, SMs, stream
+    "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _I, _I,
+                          _P],
+    "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _I, _I,
+                           _P],
     # q, k, v, o, B, S, H, KV, Dh, 9 strides, causal, window, scale, stream
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.POINTER(_LL), _I, _I,
@@ -158,6 +167,32 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(index: int):
+    """A context in which CUDA device ``index`` is current, for a launch:
+    a no-op where it already is (the common case, and ~3 us cheaper)."""
+    import torch
+    return (_CURRENT if index == torch.cuda.current_device()
+            else torch.cuda.device(index))
+
+
+def current_stream(index: int) -> int:
+    """The address of device ``index``'s current CUDA stream, as the C
+    entries take it (without building a ``torch.cuda.Stream``)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on an H100
+    SXM), which the kernels size their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tma_readable(t) -> bool:

@@ -51,24 +51,50 @@ def _close(got, want, atol, rtol):
                                rtol=rtol)
 
 
-# M, K, N, column offset of B inside a wider weight (None: contiguous)
+# M, K, N, column offset of B inside a wider weight (None: contiguous), the
+# route in fp32 and in bf16: decode (M 1) and bucket (8, 9, 16, 32, 64)
+# rows of the runtime's column slices at K 2560 and 8960, the rwkv6
+# tenant's decode down-projection over a whole weight (1 x 8960 x 2560,
+# phase c), ragged K 33 (A rows not 16-byte aligned), offsets of 3
+# columns (no route reads them in vectors) and 4 columns (16 bytes in
+# fp32, 8 in bf16), two row tiles
 MM_CASES = [
-    (1, 2560, 48, 32), (64, 2560, 1280, 640), (64, 8960, 4480, None),
-    (1, 8960, 2560, 0), (7, 33, 65, None), (128, 128, 128, None),
+    (1, 2560, 48, 32, "gemv", "gemv"), (1, 8960, 4480, 0, "gemv", "gemv"),
+    (1, 8960, 2560, 0, "gemv", "gemv"),
+    (8, 2560, 1280, 640, "gemv", "gemv"),
+    (9, 2560, 1280, 640, "tile", "tile"),
+    (16, 8960, 48, 32, "tile", "tile"), (32, 2560, 64, 0, "tile", "tile"),
+    (64, 2560, 1280, 640, "tile", "tile"),
+    (64, 8960, 4480, None, "tile", "tile"),
+    (64, 8960, 48, 4, "tile", "scalar"),
+    (1, 2560, 1280, 3, "scalar", "scalar"),
+    (64, 2560, 1280, 3, "scalar", "scalar"),
+    (8, 33, 64, None, "gemv", "gemv"), (9, 33, 64, None, "scalar", "scalar"),
+    (1, 33, 65, None, "scalar", "scalar"),
+    (7, 33, 65, None, "scalar", "scalar"),
+    (128, 128, 128, None, "tile", "tile"),
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N,off", MM_CASES)
-def test_matmul_kernel_matches_plain(cuda, M, K, N, off, dtype):
-    a = _randn((M, K), dtype, cuda, 0)
+def _mm_operands(M, K, N, off, dtype, seed=0):
+    a = _randn((M, K), dtype, "cuda", seed)
     if off is None:
-        b = _randn((K, N), dtype, cuda, 1)
-    else:
-        b = _randn((K, off + N + 16), dtype, cuda, 1)[:, off:off + N]
-    before = mm.launches
+        return a, _randn((K, N), dtype, "cuda", seed + 1)
+    w = _randn((K, off + N + 16), dtype, "cuda", seed + 1)
+    return a, w[:, off:off + N]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,off,r32,r16", MM_CASES)
+def test_matmul_kernel_matches_plain(cuda, M, K, N, off, r32, r16, dtype):
+    """Each call launches once, on the route route() names."""
+    a, b = _mm_operands(M, K, N, off, dtype)
+    want_route = r32 if dtype == "float32" else r16
+    assert mm.route(a, b) == want_route
+    before, routes = mm.launches, dict(mm.routes)
     got = mm.matmul(a, b)
     assert mm.launches == before + 1
+    assert mm.routes == {**routes, want_route: routes[want_route] + 1}
     tol = 1e-4 if dtype == "float32" else 5e-2
     _close(got, matmul_ref(a, b), tol * math.sqrt(K), tol)
 
@@ -77,27 +103,100 @@ def test_matmul_kernel_matches_plain(cuda, M, K, N, off, dtype):
 def test_batched_matmul_kT_view(cuda, dtype):
     q = _randn((4, 64, 32), dtype, cuda, 2)
     kt = _randn((4, 64, 32), dtype, cuda, 3).transpose(1, 2)
+    assert mm.route(q, kt) == "scalar"
     tol = 1e-4 if dtype == "float32" else 5e-2
     _close(mm.matmul(q, kt), matmul_ref(q, kt), tol * math.sqrt(32), tol)
 
 
-def test_matmul_is_deterministic(cuda):
-    a = _randn((64, 2560), "float32", cuda, 4)
-    b = _randn((2560, 1280), "float32", cuda, 5)
-    assert torch.equal(mm.matmul(a, b), mm.matmul(a, b))
+# one shape per route, K split into several chunks on each, and one unsplit
+@pytest.mark.parametrize("M,K,N,off,want", [
+    (64, 2560, 1280, None, "tile"), (1, 8960, 4480, 0, "gemv"),
+    (4, 2560, 48, 32, "gemv"), (64, 2560, 1280, 3, "scalar"),
+    (64, 64, 64, None, "tile"),
+])
+def test_matmul_is_deterministic(cuda, M, K, N, off, want):
+    """Two calls give the same bits on every route: the chunks' partial
+    sums are added in chunk order, with no atomics."""
+    a, b = _mm_operands(M, K, N, off, "float32", 4)
+    assert mm.route(a, b) == want
+    splits = mm.plan(want, M, N, K,
+                     torch.cuda.get_device_properties(0)
+                     .multi_processor_count)[0]
+    assert (splits > 1) == (K > 64)
+    before = mm.sum_launches
+    got = mm.matmul(a, b)
+    assert mm.sum_launches == before + (splits > 1)
+    assert torch.equal(got, mm.matmul(a, b))
+    _close(got, matmul_ref(a, b), 1e-4 * math.sqrt(K), 1e-4)
+
+
+# width -> (fp32 route, bf16 route): rwkv6's ln_x (64), qwen3's q/k-norm
+# (128), a width bf16 vectors cannot tile (100), the wide rows of olmoe
+# (2048), rwkv6/recurrentgemma (2560) and qwen3 (4096), 2 and 4 vectors a
+# lane on the warp route (1024 bf16, 512 fp32), the block route's 2 and 4
+# vectors a thread, and past it (16400 fp32)
+RMS_WIDTHS = {64: ("warp", "warp"), 96: ("warp", "warp"),
+              100: ("warp", "scalar"), 128: ("warp", "warp"),
+              512: ("warp", "warp"), 1024: ("block", "warp"),
+              2048: ("block", "block"), 2560: ("block", "block"),
+              4096: ("block", "block"), 8200: ("block", "block"),
+              16400: ("scalar", "block")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(64, 2560), (1, 2560), (3, 5, 96)])
+@pytest.mark.parametrize("shape", [(64, 2560), (1, 2560), (3, 5, 96),
+                                   (37, 64), (9, 100), (33, 128), (5, 4096),
+                                   (3, 512), (4, 1024), (2, 2048), (3, 8200),
+                                   (2, 16400)])
 @pytest.mark.parametrize("gain", [True, False])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, gain):
     x = _randn(shape, dtype, cuda, 6)
     g = _randn(shape[-1:], dtype, cuda, 7) if gain else None
-    before = rms.launches
+    want_route = RMS_WIDTHS[shape[-1]][dtype == "bfloat16"]
+    assert rms.route(x, g) == want_route
+    before, routes = rms.launches, dict(rms.routes)
     got = rms.rmsnorm(x, g)
     assert rms.launches == before + 1
+    assert rms.routes == {**routes, want_route: routes[want_route] + 1}
     tol = 1e-5 if dtype == "float32" else 2e-2
     _close(got, rmsnorm_ref(x, g), tol, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_misaligned_slice(cuda, dtype):
+    """Rows that start 2 or 4 bytes past a 16-byte boundary take the
+    scalar route."""
+    x = _randn((50, 136), dtype, cuda, 12)[:, 1:129]
+    g = _randn((128,), dtype, cuda, 13)
+    assert rms.route(x, g) == "scalar"
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(rms.rmsnorm(x, g), rmsnorm_ref(x, g), tol, tol)
+
+
+# (rows, width, dtype, route): a row's result may not depend on the rows
+# around it, on each route
+RMS_ROW_CASES = [(163840 // 16, 64, "bfloat16", "warp"),
+                 (4000, 128, "bfloat16", "warp"),
+                 (777, 512, "float32", "warp"),
+                 (300, 2560, "bfloat16", "block"),
+                 (129, 4096, "float32", "block"),
+                 (200, 100, "bfloat16", "scalar")]
+
+
+@pytest.mark.parametrize("rows,d,dtype,want", RMS_ROW_CASES)
+def test_rmsnorm_row_alone_is_bitwise_equal(cuda, rows, d, dtype, want):
+    """Row i of a many-row call (prefill) is bitwise the one-row call on
+    that row (decode), and two many-row calls agree bitwise."""
+    x = _randn((rows, d), dtype, cuda, 14)
+    g = _randn((d,), dtype, cuda, 15)
+    assert rms.route(x, g) == want
+    assert rms.route(x[5:6], g) == want
+    many = rms.rmsnorm(x, g)
+    assert torch.equal(many, rms.rmsnorm(x, g))
+    for i in (0, 1, rows // 2, rows - 1):
+        assert torch.equal(rms.rmsnorm(x[i:i + 1], g)[0], many[i]), i
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(many, rmsnorm_ref(x, g), tol, tol)
 
 
 # B, S, H, KV, Dh, causal, window: tests/test_kernels.py's sweep, then the

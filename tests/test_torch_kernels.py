@@ -146,3 +146,212 @@ def test_rmsnorm_without_gain_matches_unit_gain():
 def test_rmsnorm_rejects_unsupported(x, g, err):
     with pytest.raises(err):
         trms.rmsnorm(x, g)
+
+
+# ------------------------------------------------------------------ routes
+# route() reads dtypes, shapes, strides and data pointers only, so these
+# run on meta tensors (whose data pointer is the storage offset in bytes)
+# and CPU tensors, with no card.
+
+def _meta(shape, dtype=torch.float32, stride=None, offset=0):
+    if stride is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    base = torch.empty(offset + sum((n - 1) * s for n, s in zip(shape, stride))
+                       + 1, dtype=dtype, device="meta")
+    return base.as_strided(shape, stride, offset)
+
+
+# chip_smoke.py phase a: rows M of a column slice B = w[:, 32:32 + N] of a
+# (K, N + 64) weight, decode and bucket rows, both dtypes
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 8, 16, 32, 64])
+@pytest.mark.parametrize("K", [2560, 8960])
+@pytest.mark.parametrize("N", [48, 1280, 4480])
+def test_matmul_route_at_phase_a_shapes(M, K, N, dtype):
+    dt = DTYPES[dtype][1]
+    w = _meta((K, N + 64), dt)
+    assert tmm.route(_meta((M, K), dt), w[:, 32:32 + N]) == \
+        ("gemv" if M <= 8 else "tile")
+
+
+# chip_smoke.py phase c (the rwkv6 tenant at d 2560, ffn 8960, and the
+# 64-wide vision tenant): A, then B's shape, strides and offset, as the
+# runtime hands them to the GEMM (whole weights and column tiles)
+PHASE_C_MM = [
+    ((1, 2560), (2560, 2560), (2560, 1), 0, "gemv"),
+    ((1, 2560), (2560, 8960), (8960, 1), 0, "gemv"),
+    ((1, 8960), (8960, 2560), (2560, 1), 0, "gemv"),
+    ((1, 64), (64, 16), (64, 1), 48, "gemv"),
+    ((1, 64), (64, 32), (64, 1), 32, "gemv"),
+    ((1, 64), (64, 48), (64, 1), 0, "gemv"),
+    ((32, 2560), (2560, 2560), (2560, 1), 0, "tile"),
+    ((32, 2560), (2560, 8960), (8960, 1), 0, "tile"),
+    ((32, 8960), (8960, 2560), (2560, 1), 0, "tile"),
+    ((64, 2560), (2560, 1280), (2560, 1), 1280, "tile"),
+    ((64, 2560), (2560, 1920), (2560, 1), 0, "tile"),
+    ((64, 2560), (2560, 640), (2560, 1), 1920, "tile"),
+    ((64, 2560), (2560, 4480), (8960, 1), 4480, "tile"),
+    ((64, 8960), (8960, 1920), (2560, 1), 0, "tile"),
+    ((64, 8960), (8960, 640), (2560, 1), 1920, "tile"),
+]
+
+
+@pytest.mark.parametrize("ashape,bshape,bstride,boff,want", PHASE_C_MM)
+def test_matmul_route_at_phase_c_shapes(ashape, bshape, bstride, boff, want):
+    """No served GEMM of phase c takes the scalar route."""
+    b = _meta(bshape, stride=bstride, offset=boff)
+    assert tmm.route(_meta(ashape), b) == want
+
+
+@pytest.mark.parametrize("a,b,want32,want16", [
+    # batch_matmul's transposed kT: B's innermost stride is not 1
+    (lambda dt: _meta((4, 64, 32), dt),
+     lambda dt: _meta((4, 64, 32), dt).transpose(1, 2), "scalar", "scalar"),
+    # column offsets of 1, 2 and 3 elements: no 16-byte vectors
+    (lambda dt: _meta((64, 256), dt),
+     lambda dt: _meta((256, 200), dt)[:, 1:129], "scalar", "scalar"),
+    (lambda dt: _meta((1, 256), dt),
+     lambda dt: _meta((256, 200), dt)[:, 2:130], "scalar", "scalar"),
+    (lambda dt: _meta((64, 256), dt),
+     lambda dt: _meta((256, 200), dt)[:, 3:131], "scalar", "scalar"),
+    # an offset of 4 elements: 16 bytes in fp32, 8 in bf16
+    (lambda dt: _meta((64, 256), dt),
+     lambda dt: _meta((256, 200), dt)[:, 4:132], "tile", "scalar"),
+    (lambda dt: _meta((1, 256), dt),
+     lambda dt: _meta((256, 200), dt)[:, 4:132], "gemv", "scalar"),
+    # a width of 100: rows 400 bytes apart in fp32, 200 in bf16
+    (lambda dt: _meta((64, 64), dt), lambda dt: _meta((64, 100), dt),
+     "tile", "scalar"),
+    # A a misaligned slice: the tile route reads A in vectors, gemv does not
+    (lambda dt: _meta((64, 257), dt)[:, 1:], lambda dt: _meta((256, 64), dt),
+     "scalar", "scalar"),
+    (lambda dt: _meta((8, 257), dt)[:, 1:], lambda dt: _meta((256, 64), dt),
+     "gemv", "gemv"),
+    # K 33: A's rows 132 bytes apart; B's rows 65 elements apart
+    (lambda dt: _meta((9, 33), dt), lambda dt: _meta((33, 64), dt),
+     "scalar", "scalar"),
+    (lambda dt: _meta((9, 64), dt), lambda dt: _meta((64, 65), dt),
+     "scalar", "scalar"),
+    # batched and broadcast operands, leading dims of a dense input
+    (lambda dt: _meta((2, 3, 64), dt), lambda dt: _meta((64, 32), dt),
+     "gemv", "gemv"),
+    (lambda dt: _meta((4, 16, 64), dt), lambda dt: _meta((64, 64), dt),
+     "tile", "tile"),
+    (lambda dt: _meta((4, 16, 64), dt), lambda dt: _meta((4, 64, 64), dt),
+     "tile", "tile"),
+], ids=["kT", "off1", "off2-decode", "off3", "off4", "off4-decode",
+        "width100", "a-misaligned", "a-misaligned-decode", "k33-a",
+        "n65-b", "dense-3d", "m-from-leading", "batched"])
+def test_matmul_route_of_views(a, b, want32, want16):
+    for dt, want in ((torch.float32, want32), (torch.bfloat16, want16)):
+        assert tmm.route(a(dt), b(dt)) == want, dt
+
+
+def test_matmul_route_on_cpu_tensors():
+    """route() reads the real data pointer of a CPU slice."""
+    w = torch.zeros(64, 200)
+    a = torch.zeros(64, 64)
+    assert tmm.route(a, w[:, 8:136]) == "tile"
+    assert tmm.route(a, w[:, 9:137]) == "scalar"
+    assert tmm.route(a[:1], w[:, 8:136]) == "gemv"
+
+
+@pytest.mark.parametrize("route", ["gemv", "tile", "scalar"])
+@pytest.mark.parametrize("M,N,K", [(1, 48, 2560), (1, 4480, 8960),
+                                   (8, 1280, 2560), (16, 48, 8960),
+                                   (64, 1280, 2560), (64, 4480, 8960),
+                                   (64, 64, 33), (3, 5, 0), (1, 64, 200000)])
+def test_matmul_plan_covers_k(route, M, N, K):
+    """The split of K: whole chunks of the kernel's step (16 rows, 128 on
+    gemv, whose chunk of A, chunk x M rounded up to 1, 2, 4 or 8 floats,
+    fits 32 KB of shared memory), covering K with no empty chunk, a
+    function of the shape and the SM count alone."""
+    if route == "gemv" and M > tmm.GEMV_MAX_M:
+        return
+    splits, chunk = tmm.plan(route, M, N, K, 132)
+    assert chunk % (128 if route == "gemv" else 16) == 0 and chunk >= 16
+    if route == "gemv":
+        mr = next(r for r in (1, 2, 4, 8) if r >= M)
+        assert chunk * mr * 4 <= 32 * 1024
+    assert splits >= 1 and splits * chunk >= K
+    assert (splits - 1) * chunk < K or splits == 1
+    assert tmm.plan(route, M, N, K, 132) == (splits, chunk)
+    assert (splits, chunk) in tmm.splits(route, M, N, K)
+
+
+@pytest.mark.parametrize("M,N,K,route", [
+    (1, 4480, 8960, "gemv"), (1, 1280, 2560, "gemv"), (8, 1280, 8960, "gemv"),
+    (16, 1280, 2560, "tile"), (64, 1280, 2560, "tile"),
+    (64, 4480, 8960, "tile"), (64, 1920, 2560, "tile"),
+])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_matmul_plan_fills_the_card(M, N, K, route, sms):
+    """Phase a's and phase c's wider shapes launch a block for nearly every
+    SM (64 x 2560 x 1280 has 10 tiles of 64 x 128), on an H100 SXM (132
+    SMs) and an H100 PCIe (114)."""
+    splits, _ = tmm.plan(route, M, N, K, sms)
+    tm, tn = tmm.tile(route, M, N)
+    if route == "gemv":
+        tiles = -(-N // 128)
+    else:
+        tiles = -(-M // (8 * tm)) * -(-N // (16 * tn))
+    assert tiles * splits >= 0.9 * sms
+
+
+# M, N -> the tile the wrapper passes to csrc/matmul.cu: gemv's rows held
+# (M rounded up to 1, 2, 4 or 8), else (TM, TN) of an 8TM x 16TN block
+# tile, 64 rows 128 wide past N 64; the C side compiles these alone
+@pytest.mark.parametrize("route,M,N,want", [
+    ("gemv", 1, 4480, (1, 0)), ("gemv", 2, 48, (2, 0)),
+    ("gemv", 3, 48, (4, 0)), ("gemv", 8, 1280, (8, 0)),
+    ("tile", 9, 1280, (2, 4)), ("tile", 16, 4480, (2, 4)),
+    ("tile", 17, 48, (4, 4)), ("tile", 32, 1280, (4, 4)),
+    ("tile", 33, 64, (8, 4)), ("tile", 64, 65, (8, 8)),
+    ("scalar", 1, 1280, (2, 4)), ("scalar", 64, 1280, (8, 8)),
+    ("scalar", 4096, 64, (8, 4)),
+])
+def test_matmul_tile(route, M, N, want):
+    assert tmm.tile(route, M, N) == want
+
+
+# width -> route: rwkv6's ln_x (64) and qwen3's q/k-norm (128) on the warp
+# route; olmoe (2048), rwkv6/recurrentgemma and phase c (2560) and qwen3
+# (4096) on the block route
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((4096, 40, 64), "bfloat16", "warp"),      # rwkv6 ln_x, T 4096
+    ((1, 40, 64), "bfloat16", "warp"),         # ... at decode
+    ((1, 1000, 32, 128), "bfloat16", "warp"),  # qwen3 q-norm, S 1000
+    ((1, 1000, 8, 128), "bfloat16", "warp"),   # qwen3 k-norm
+    ((1, 1, 8, 128), "bfloat16", "warp"),      # ... at decode
+    ((1, 4096, 2048), "bfloat16", "block"),    # olmoe ln
+    ((1, 4096, 2560), "bfloat16", "block"),    # recurrentgemma, rwkv6
+    ((1, 1000, 4096), "bfloat16", "block"),    # qwen3
+    ((64, 2560), "float32", "block"),          # phase c prefill
+    ((1, 2560), "float32", "block"),           # phase c decode
+    ((5, 100), "bfloat16", "scalar"),          # 100 bf16: 12.5 vectors
+    ((5, 100), "float32", "warp"),             # 100 fp32: 25 vectors
+    ((5, 512), "float32", "warp"),
+    ((5, 1024), "float32", "block"),
+    ((5, 1024), "bfloat16", "warp"),
+    ((5, 16400), "float32", "scalar"),         # past the block route
+])
+def test_rmsnorm_route_by_width(shape, dtype, want):
+    dt = DTYPES[dtype][1]
+    x = _meta(shape, dt)
+    assert trms.route(x, _meta(shape[-1:], dt)) == want
+    assert trms.route(x) == want
+
+
+def test_rmsnorm_route_of_views():
+    """Misaligned rows or gain take the scalar route; a view with a
+    non-unit column stride is made contiguous first."""
+    bf = torch.bfloat16
+    assert trms.route(_meta((50, 136), bf)[:, 1:129]) == "scalar"
+    assert trms.route(_meta((50, 136), bf)[:, 8:136]) == "warp"
+    assert trms.route(_meta((50, 132), bf)[:, :128]) == "scalar"   # stride
+    assert trms.route(_meta((1, 132), bf)[:, :128]) == "warp"      # one row
+    assert trms.route(_meta((50, 128), bf),
+                      _meta((129,), bf)[1:]) == "scalar"
+    assert trms.route(_meta((128, 50), bf).t()) == "warp"
+    assert trms.route(torch.zeros(6, 130)[:, 2:]) == "scalar"      # CPU
+    assert trms.route(torch.zeros(6, 132)[:, 4:]) == "warp"
