@@ -20,8 +20,13 @@ seven phases; any mismatch raises, so the script exits non-zero:
     and strides TMA cannot read take), each row naming its route, the
     bf16 flash-attention rows also timed on the SIMT kernel (the design
     before the tensor-core one), each of the tensor-core flash-attention
-    instances (Dh 64, 128, 256) held once, and the grouped matmul's
-    wrapper's host time per call on each route;
+    instances (Dh 64, 128, 256) held once, the grouped matmul's
+    wrapper's host time per call on each route; WKV6 and the RG-LRU scan
+    also at rwkv6-3b's and recurrentgemma-2b's 4096-token prefill shapes
+    (held to the plain version once, the plain version untimed), and
+    every compiled instance of both held once (WKV6's four head widths,
+    each with its columns per block, and the scan's strip, in fp32 and
+    bf16);
 (b) plans: MLPerf-Tiny autoencoder, resnet and transformer_block compiled
     by the port's compiler (carfield SoC, mode "matcha"); ``execute_plan``
     on the card against ``execute_graph`` on CPU tensors at 1e-4, and a
@@ -83,6 +88,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import random
@@ -204,19 +210,32 @@ def main() -> int:
 def ptxas_lines(log: str):
     """``nvcc -Xptxas -v``'s registers, shared memory and spills, one line
     per kernel instance, and any warning."""
-    import re
     kernel, spills = "?", ""
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            m = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)I(\w*?)EEv", line)
-            kernel = f"{m.group(1)}<{m.group(2)}>" if m else line
+            kernel = _kernel_name(line)
         elif "spill" in line:
             spills = line
         elif "registers" in line:
             yield f"{kernel}: {line.split(': ', 1)[-1]}; {spills}"
         elif "warning" in line.lower():
             yield line
+
+
+def _kernel_name(line: str) -> str:
+    """``name<template arguments>`` of the mangled kernel in a ptxas line:
+    the length-prefixed name that ends in ``_kernel`` (a digit run may
+    hold a namespace's last digit before the name's length)."""
+    import re
+    for run in re.finditer(r"\d+", line):
+        for at in range(run.start(), run.end()):
+            n = int(line[at:run.end()])
+            name = line[run.end():run.end() + n]
+            rest = re.match(r"I(\w*?)EEv", line[run.end() + n:])
+            if name.endswith("_kernel") and name.isidentifier() and rest:
+                return f"{name}<{rest.group(1)}>"
+    return line
 
 
 # ---------------------------------------------------------------- timing
@@ -273,6 +292,7 @@ ATTN_MAIN = (1, 1000, 32, 8, 128, True, None, "bfloat16", "qwen3-8b")
 # tests/test_kernels.py's sweep
 WKV_ROWS = [
     (1, 1000, 40, 64, "bfloat16", "rwkv6-3b"),
+    (1, 4096, 40, 64, "bfloat16", "rwkv6-3b"),
     (1, 1000, 40, 64, "float32", "rwkv6-3b"),
     (1, 77, 40, 64, "bfloat16", "rwkv6-3b"),
     (2, 128, 40, 64, "bfloat16", "rwkv6-3b"),
@@ -284,6 +304,7 @@ WKV_MAIN = WKV_ROWS[0]
 # B, T, D, dtype, what: recurrentgemma-2b's serving shapes, then the sweep
 RGLRU_ROWS = [
     (1, 1000, 2560, "bfloat16", "recurrentgemma-2b"),
+    (1, 4096, 2560, "bfloat16", "recurrentgemma-2b"),
     (1, 1000, 2560, "float32", "recurrentgemma-2b"),
     (1, 77, 2560, "bfloat16", "recurrentgemma-2b"),
     (2, 256, 384, "float32", "sweep"),
@@ -291,6 +312,9 @@ RGLRU_ROWS = [
     (3, 64, 96, "float32", "sweep"),
 ]
 RGLRU_MAIN = RGLRU_ROWS[0]
+# rows at or past this many steps hold the kernel to the plain version
+# once but leave the plain version untimed (wkv6_ref takes ~1 s there)
+PLAIN_UNTIMED_T = 4096
 # E, C, D, F, dtype, what, x's layout: olmoe-1b-7b's gate/up and down
 # GEMMs at every row count its bf16 serving run gives them (phase g
 # checks that it gives no other): a 1000-token prefill (C = 160), decode
@@ -486,48 +510,109 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
     # computes WKV6, so there is no library time.  The least work is
     # 5 D^2 operations per (b, t, h): r.S (2 D^2) and S <- w S + k v
     # (3 D^2); the bytes are r/k/v/w and u read, y and S written once.
-    for case in WKV_ROWS:
-        B, T, H, D, dt, what = case
-        dtype = dtypes[dt]
+    # Beside the bound, the fp32 pipe's floor: the kernel computes in fp32
+    # whatever the inputs' type, three instructions per state element a
+    # step (acc += r S, k v, S <- w S + k v) at one per lane a cycle.
+
+    def wkv_inputs(B, T, H, D, dtype):
         r, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
         w = torch.exp(-torch.exp(torch.randn(B, T, H, D, generator=gen,
                                              device=dev) * 0.5)).to(dtype)
         u = (torch.randn(H, D, generator=gen, device=dev) * 0.5).to(dtype)
+        return r, k, v, w, u
+
+    def wkv_tol(dtype):
         y_tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+        return y_tol, (1e-3, 1e-3)
+
+    for case in WKV_ROWS:
+        B, T, H, D, dt, what = case
+        dtype = dtypes[dt]
+        r, k, v, w, u = wkv_inputs(B, T, H, D, dtype)
         row = record(
             "wkv6", f"{what} B{B} T{T} H{H} D{D}", dtype,
-            wkv.wkv6(r, k, v, w, u), wkv6_ref(r, k, v, w, u),
-            (y_tol, (1e-3, 1e-3)),
+            wkv.wkv6(r, k, v, w, u), wkv6_ref(r, k, v, w, u), wkv_tol(dtype),
             {"ms": lambda: wkv.wkv6(r, k, v, w, u),
-             "plain_ms": lambda: wkv6_ref(r, k, v, w, u),
+             "plain_ms": (lambda: wkv6_ref(r, k, v, w, u))
+             if T < PLAIN_UNTIMED_T else None,
              "library_ms": None},
             5.0 * B * T * H * D * D,
             5 * r.numel() * r.element_size() + 4 * H * D + 4 * B * H * D * D)
         row["library"] = "none: no PyTorch call computes WKV6"
+        row["fp32_floor_ms"] = 3.0 * B * T * H * D * D * 2 / FP32_FLOPS * 1e3
+        # the grid the wrapper gave the C side, which launches it as given
+        (gx, gy, gz), threads = wkv.grid(r.shape, dtype)
+        row["grid"] = {"columns_per_block": wkv.plan(r.shape, dtype),
+                       "blocks": gx * gy * gz, "threads": threads}
         if case == WKV_MAIN:
             entries["wkv6"] = row
+    # every compiled instance (head width, its columns per block) in both
+    # dtypes, held once over two chunks and a ragged tail
+    err = 0.0
+    for (D, cb), dtype in itertools.product(wkv.COLUMN_BLOCK.items(),
+                                            (torch.float32, torch.bfloat16)):
+        args = wkv_inputs(2, 2 * wkv.chunk(D) + 5, 3, D, dtype)
+        got = wkv._launch(*args[:4], args[4].float().contiguous())
+        for g, w_, (atol, rtol) in zip(got, wkv6_ref(*args), wkv_tol(dtype)):
+            diff = (g.float() - w_.float()).abs()
+            err = max(err, diff.max().item())
+            if not bool((diff <= atol + rtol * w_.float().abs()).all()):
+                raise AssertionError(f"wkv6 instance D {D} columns {cb} "
+                                     f"{names[dtype]}: max abs err "
+                                     f"{diff.max().item()}")
+    print(f"wkv6 instances: every (D: columns per block) of "
+          f"{wkv.COLUMN_BLOCK} in fp32 and bf16 held to the plain version, "
+          f"max abs err {err}")
 
     # K5: h and h_T against the plain scan (the kernel rounds as the plain
     # version does: fp32 agrees to rounding, bf16 h to one bf16 rounding)
-    for case in RGLRU_ROWS:
-        B, T, D, dt, what = case
-        dtype = dtypes[dt]
+    def rglru_inputs(B, T, D, dtype):
         a = (torch.sigmoid(torch.randn(B, T, D, generator=gen, device=dev))
              * 0.98).to(dtype)
         b = (torch.randn(B, T, D, generator=gen, device=dev) * 0.3).to(dtype)
+        return a, b
+
+    def rglru_tol(dtype):
         h_tol = (1e-6, 1e-6) if dtype == torch.float32 else (1e-2, 1e-2)
+        return h_tol, (1e-6, 1e-6)
+
+    for case in RGLRU_ROWS:
+        B, T, D, dt, what = case
+        dtype = dtypes[dt]
+        a, b = rglru_inputs(B, T, D, dtype)
         row = record(
             "rglru", f"{what} B{B} T{T} D{D}", dtype, scan.rglru(a, b),
-            rglru_ref(a, b), (h_tol, (1e-6, 1e-6)),
+            rglru_ref(a, b), rglru_tol(dtype),
             {"ms": lambda: scan.rglru(a, b),
-             "plain_ms": lambda: rglru_ref(a, b),
+             "plain_ms": (lambda: rglru_ref(a, b))
+             if T < PLAIN_UNTIMED_T else None,
              "library_ms": None},
             2.0 * B * T * D,
             3 * a.numel() * a.element_size() + 4 * B * D)
         row["library"] = "none: no PyTorch call computes the linear scan"
+        # a multiply and an add a step, rounded apart (no fused FMA)
+        row["fp32_floor_ms"] = 2.0 * B * T * D * 2 / FP32_FLOPS * 1e3
+        (gx, gy), threads = scan.grid(a.shape, dtype)
+        row["grid"] = {"channels_per_block": scan.STRIP,
+                       "blocks": gx * gy, "threads": threads}
         if case == RGLRU_MAIN:
             entries["rglru"] = row
+    # the compiled instance in both dtypes, held once over two chunks and
+    # a ragged tail, at a D whose last strip is part-filled
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = rglru_inputs(2, 2 * scan.chunk(dtype) + 5, 2568, dtype)
+        got, want = scan._launch(a, b), rglru_ref(a, b)
+        for g, w_, (atol, rtol) in zip(got, want, rglru_tol(dtype)):
+            diff = (g.float() - w_.float()).abs()
+            err = max(err, diff.max().item())
+            if not bool((diff <= atol + rtol * w_.float().abs()).all()):
+                raise AssertionError(
+                    f"rglru strip {scan.STRIP} {names[dtype]}: max abs "
+                    f"err {diff.max().item()}")
+    print(f"rglru instance: strips of {scan.STRIP} channels in fp32 and "
+          f"bf16 held to the plain version, max abs err {err}")
 
     # K6: the MoE layer's per-expert GEMMs; the library call is torch.bmm
     # on the same operands (cuBLAS, tensor cores in bf16).  Each row names
@@ -1114,7 +1199,7 @@ def phase_lm(torch, dev, card, counted, spec):
 def _device_busy_s(torch, fn):
     """(seconds the card spent in kernels during one call of ``fn``, the
     number of kernels, the six costliest kernel names with their ms and
-    last the ms of RMSNorm's kernels), from
+    last the ms of RMSNorm's, WKV6's and the RG-LRU scan's kernels), from
     a ``torch.profiler`` trace; busy time is the union of the kernels'
     intervals, so overlapping kernels count once."""
     from torch.autograd import DeviceType
@@ -1136,9 +1221,12 @@ def _device_busy_s(torch, fn):
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    # RMSNorm's (K2's) kernels, whatever their rank
-    top += [("K2 rms_*_kernel", sum(t for n, t in by_name.items()
-                                    if "rms_" in n))]
+    # RMSNorm's (K2's), WKV6's (K4's) and the RG-LRU scan's (K5's)
+    # kernels, whatever their rank
+    top += [(label, sum(t for n, t in by_name.items() if key in n))
+            for label, key in (("K2 rms_*_kernel", "rms_"),
+                               ("K4 wkv6_kernel", "wkv6_kernel"),
+                               ("K5 rglru_kernel", "rglru_kernel"))]
     return busy * 1e-6, len(events), [(n[:60], t * 1e-3) for n, t in top]
 
 

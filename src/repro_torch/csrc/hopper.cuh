@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels: thin
-// inline-PTX wrappers for mbarriers, 3-D and 4-D TMA tensor loads, the
+// Hopper (sm_90a) building blocks of the port's kernels: thin inline-PTX
+// wrappers for cp.async copies, mbarriers, 3-D and 4-D TMA tensor loads, the
 // wgmma shared-memory descriptor and instructions (A from shared memory or
 // from registers), and setmaxnreg, plus the host-side encoders of TMA
 // tensor maps.  The encodings follow the PTX ISA
@@ -21,6 +21,32 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- cp.async
+
+// 16 bytes global -> shared, bypassing L1; bytes past `src_bytes` are
+// zero-filled (0 reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// waits until at most N committed cp.async groups of this thread are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------ mbarriers
@@ -464,6 +490,36 @@ inline int encode_bf16_4d_sw128(CUtensorMap* map, const void* base,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4-D tensor map over `base` of bf16 (elem_bytes 2) or fp32 (4):
+// dimension 0 innermost and contiguous, sizes d0..d3, strides s1..s3 in
+// elements (any order), boxes of b0 x b1 x b2 x b3 elements loaded as
+// they lie (no swizzle), zeros outside the tensor.  Returns 0 or a CUDA
+// error code.
+inline int encode_4d(CUtensorMap* map, const void* base, int elem_bytes,
+                     long long d0, long long d1, long long d2, long long d3,
+                     long long s1, long long s2, long long s3, int b0,
+                     int b1, int b2, int b3) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+      static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s1 * elem_bytes),
+                                 static_cast<cuuint64_t>(s2 * elem_bytes),
+                                 static_cast<cuuint64_t>(s3 * elem_bytes)};
+  const cuuint32_t box[4] = {
+      static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1),
+      static_cast<cuuint32_t>(b2), static_cast<cuuint32_t>(b3)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

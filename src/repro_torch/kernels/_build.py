@@ -60,15 +60,18 @@ SIGNATURES = {
     "repro_flash_attention_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, ctypes.POINTER(_LL), _I, _I,
                                          ctypes.c_float, _P],
-    # r, k, v, w, u (fp32), y, S, B, T, H, D, 12 strides, stream
-    "repro_wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       ctypes.POINTER(_LL), _P],
-    "repro_wkv6_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        ctypes.POINTER(_LL), _P],
-    # a, b, h, h_T, B, T, D, a's (batch, time) strides, b's, stream
-    "repro_rglru_f32": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _P],
-    "repro_rglru_bf16": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
-                         _P],
+    # r, k, v, w, u (fp32), y, S, B, T, H, D, columns per block, blocks
+    # a head, threads a block, 12 strides, 16-byte copies, stream
+    "repro_wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, ctypes.POINTER(_LL), _I, _P],
+    "repro_wkv6_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, ctypes.POINTER(_LL), _I, _P],
+    # a, b, h, h_T, B, T, D, strips, threads a block, a's (batch, time)
+    # strides, b's, 16-byte copies, stream
+    "repro_rglru_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                        _LL, _I, _P],
+    "repro_rglru_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                         _LL, _I, _P],
     # x, w, out, E, C, D, F, x's (expert, row, column) strides, w's, stream
     "repro_grouped_matmul_f32": [_P, _P, _P, _I, _I, _I, _I,
                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],

@@ -4,7 +4,9 @@ state, fp32 arithmetic.
 
 CUDA tensors launch the hand-written kernel in ``csrc/wkv6.cu``, which
 steps the exact recurrence (no chunked rescaling, so any decay and any T)
-and reads r/k/v/w through their strides; CPU tensors run
+and reads r/k/v/w through their strides, on the grid :func:`grid` gives
+(the columns per block from :func:`plan`; the C side launches that grid
+and refuses one its instance cannot run); CPU tensors run
 :func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_ref`.
 """
 
@@ -20,7 +22,16 @@ from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
 
 _ENTRY = {torch.float32: "repro_wkv6_f32",
           torch.bfloat16: "repro_wkv6_bf16"}
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's head-width instances
+PRODUCERS = 128            # threads a block that stage the chunks
+TILE = (4, 2)              # state rows x columns a thread keeps
+# head width -> columns of the state a block steps (csrc/wkv6.cu's
+# REPRO_WKV6_CASE instances, one for each D; the CPU tests hold the two
+# lists equal): whole warps (a column pair's D/4 threads share one); at D 64
+# a head is three blocks of 24, 24 and 16 columns, 120 blocks at B1 H40,
+# so no SM of an H100 holds two (measured faster than 16 or 32, whose
+# 160 or 80 blocks leave 8 stepping warps on the busiest SMs, not 6)
+COLUMN_BLOCK = {16: 16, 32: 32, 64: 24, 128: 16}
+HEAD_DIMS = tuple(COLUMN_BLOCK)     # the kernel's head-width instances
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
 
 launches = 0               # kernel launches since the last reset
@@ -45,6 +56,67 @@ def _check(r, k, v, w, u) -> None:
         raise ValueError(f"head width {D} is not one of {HEAD_DIMS}")
 
 
+def chunk(D: int) -> int:
+    """Time steps a block stages and steps at once (csrc/wkv6.cu's TC)."""
+    return 16 if D == 128 else 32
+
+
+def plan(shape, dtype: torch.dtype) -> int:
+    """Columns of a head's state per block for r of ``shape`` (B,T,H,D)
+    and ``dtype``; raises for what the kernel does not take."""
+    if dtype not in _ENTRY:
+        raise TypeError(f"wkv6 takes fp32 or bf16, got {dtype}")
+    D = shape[3]
+    if D not in COLUMN_BLOCK:
+        raise ValueError(f"head width {D} is not one of {HEAD_DIMS}")
+    return COLUMN_BLOCK[D]
+
+
+def grid(shape, dtype: torch.dtype):
+    """((column blocks, heads, batch), threads a block) of the launch: the
+    threads that step the state (D/4 for each column pair; the last block
+    of a head may use fewer) and the :data:`PRODUCERS` that stage the
+    chunks."""
+    B, _, H, D = shape
+    cb = plan(shape, dtype)
+    return (-(-D // cb), H, B), cb // TILE[1] * (D // TILE[0]) + PRODUCERS
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """16-byte copies read ``t``: last axis contiguous, the (batch, time,
+    head) strides of dims longer than 1 multiples of 16 bytes, the base
+    16-byte aligned."""
+    e = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % e == 0 or n == 1
+                    for s, n in zip(t.stride()[:3], t.shape[:3])))
+
+
+def _launch(r, k, v, w, u):
+    """One launch on the grid of :func:`plan` and :func:`grid`: (y, S)."""
+    B, T, H, D = r.shape
+    dev = r.device
+    y = torch.empty((B, T, H, D), dtype=r.dtype, device=dev)
+    s = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+    if B * H == 0:
+        return y, s
+    strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *w.stride()[:3])
+    vec = all(_vec_ok(t) for t in (r, k, v, w))
+    (blocks, _, _), threads = grid(r.shape, r.dtype)
+    lib = _build.library()
+    global launches
+    with _build.on_device(dev.index):
+        launches += 1
+        rc = getattr(lib, _ENTRY[r.dtype])(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), y.data_ptr(), s.data_ptr(), B, T, H, D,
+            plan(r.shape, r.dtype), blocks, threads, strides, int(vec),
+            _build.current_stream(dev.index))
+    _build.check(rc, "wkv6")
+    return y, s
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,20 +131,4 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (r, k, v, w))
     u = u.float().contiguous()
-    y = torch.empty((B, T, H, D), dtype=r.dtype, device=r.device)
-    s = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
-    if B * H == 0:
-        return y, s
-    strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *w.stride()[:3])
-    lib = _build.library()
-    global launches
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        launches += 1
-        rc = getattr(lib, _ENTRY[r.dtype])(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), y.data_ptr(), s.data_ptr(), B, T, H, D, strides,
-            stream)
-    _build.check(rc, "wkv6")
-    return y, s
+    return _launch(r, k, v, w, u)

@@ -423,6 +423,73 @@ def test_wkv6_strong_decays_stay_finite(cuda):
     _close(s, s0, 1e-4, 1e-4)
 
 
+def _wkv_check(args, dtype, got=None):
+    """The kernel's (y, S) on ``args`` (or ``got``) against the plain
+    version at WKV_TOL, both finite."""
+    y, s = wkv.wkv6(*args) if got is None else got
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    y0, s0 = wkv6_ref(*args)
+    ty, ts = WKV_TOL[dtype]
+    _close(y, y0, ty, ty)
+    _close(s, s0, ts, ts)
+
+
+# every compiled instance (head width, columns per block; at D 64 the last
+# block of a head is narrower), in both dtypes, over two chunks and a
+# ragged tail
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,cb", sorted(wkv.COLUMN_BLOCK.items()))
+def test_wkv6_every_instance(cuda, D, cb, dtype):
+    args = _wkv_inputs(2, 2 * wkv.chunk(D) + 5, 3, D, dtype, cuda, 17)
+    assert wkv.plan(args[0].shape, args[0].dtype) == cb
+    before = wkv.launches
+    got = wkv._launch(*args[:4], args[4].float().contiguous())
+    assert wkv.launches == before + 1
+    _wkv_check(args, dtype, got)
+
+
+# T at 1, a chunk less one, a chunk, a chunk and one, and rwkv6-3b's
+# longest prompt, at the serving shape's plan and at D 128's shorter chunk
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,D,T", [(40, 64, t) for t in (1, 31, 32, 33,
+                                                        4096)]
+                         + [(3, 128, t) for t in (15, 16, 17)])
+def test_wkv6_chunk_edges(cuda, H, D, T, dtype):
+    assert wkv.chunk(D) in (T - 1, T, T + 1) or T in (1, 4096)
+    _wkv_check(_wkv_inputs(1, T, H, D, dtype, cuda, 18), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["zero", "strong"])
+def test_wkv6_extreme_decays(cuda, decay, dtype):
+    """w exactly 0 (the state forgets every step) and w in [1e-4, 0.05]:
+    finite and within tolerance."""
+    r, k, v, _, u = _wkv_inputs(1, 100, 4, 64, dtype, cuda, 19)
+    w = (torch.zeros(r.shape, device=cuda) if decay == "zero" else
+         torch.rand(r.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(19))
+         * (0.05 - 1e-4) + 1e-4).to(DTYPES[dtype])
+    _wkv_check((r, k, v, w, u), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_misaligned_views(cuda, dtype):
+    """r/k/v/w at an odd offset in a wider last axis: strides 16-byte
+    copies cannot read take the element copies; bitwise repeatable."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.normal(size=(4, 2, 45, 3, 65))
+                         .astype(np.float32)).to(cuda, DTYPES[dtype])
+    x[3] = torch.exp(-torch.exp(x[3].float() * 0.5)).to(DTYPES[dtype])
+    r, k, v, w = (t[..., 1:] for t in x)
+    assert not wkv._vec_ok(r)
+    u = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)).to(
+        cuda)
+    y, s = wkv.wkv6(r, k, v, w, u)
+    y2, s2 = wkv.wkv6(r, k, v, w, u)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    _wkv_check((r, k, v, w, u), dtype, (y, s))
+
+
 # B, T, D: tests/test_kernels.py's sweep, recurrentgemma-2b's serving
 # shapes, then ragged T and D
 RGLRU_CASES = [
@@ -468,6 +535,48 @@ def test_rglru_strided_and_deterministic(cuda):
     h0, h_last0 = rglru_ref(a, b)
     _close(h, h0, 1e-6, 1e-6)
     _close(h_last, h_last0, 1e-6, 1e-6)
+
+
+def _rglru_check(a, b, dtype, got):
+    h, h_last = got
+    h0, h_last0 = rglru_ref(a, b)
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    _close(h, h0, tol, tol)
+    _close(h_last, h_last0, 1e-6, 1e-6)
+
+
+# both dtypes, T at 1, a chunk less one, a chunk, a chunk and one, and
+# recurrentgemma-2b's longest prompt; D 2560 and a ragged D whose last
+# strip is part-filled
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("at", ["1", "chunk-1", "chunk", "chunk+1", "4096"])
+@pytest.mark.parametrize("D", [2560, 2568])
+def test_rglru_every_strip_and_chunk_edge(cuda, D, at, dtype):
+    n = scan.chunk(DTYPES[dtype])
+    T = {"1": 1, "chunk-1": n - 1, "chunk": n, "chunk+1": n + 1,
+         "4096": 4096}[at]
+    a, b = _rglru_inputs(1, T, D, dtype, cuda, 21)
+    before = scan.launches
+    got = scan._launch(a, b)
+    assert scan.launches == before + 1
+    _rglru_check(a, b, dtype, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_misaligned_views(cuda, dtype):
+    """a and b at an odd offset in a wider last axis take the element
+    copies; bitwise repeatable."""
+    rng = np.random.default_rng(22)
+    D = 300
+    x = rng.normal(size=(2, 2, 150, D + 1))
+    x[0] = 0.98 / (1.0 + np.exp(-x[0]))
+    t = torch.from_numpy(x.astype(np.float32)).to(cuda, DTYPES[dtype])
+    a, b = t[0][..., 1:], t[1][..., 1:]
+    assert not scan._vec_ok(a)
+    got = scan.rglru(a, b)
+    again = scan.rglru(a, b)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    _rglru_check(a, b, dtype, got)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])

@@ -4,6 +4,9 @@ sweep of tests/test_kernels.py, and the JAX package's exact scan at
 ragged T, which the Pallas kernel cannot take.  Inputs are made with
 numpy from a seed and given to both packages."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,3 +100,52 @@ def _t(*shape, dtype=torch.float32):
 def test_rglru_rejects_unsupported(a, b, err):
     with pytest.raises(err):
         tscan.rglru(a, b)
+
+
+# recurrentgemma-2b's K5 shapes (B, T) at D 2560: phase f's prompts, with
+# phase a's serving rows among them; then phase a's sweep rows (B, T, D)
+SERVED = [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)]
+SWEEP_ROWS = [(2, 256, 384), (1, 128, 64), (3, 64, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", SERVED)
+def test_rglru_grid_uses_most_sms(B, T, dtype):
+    """On an H100's 132 SMs D 2560 spreads over at least 80 SMs."""
+    a = torch.empty((B, T, 2560), dtype=dtype, device="meta")
+    (gx, gy), threads = tscan.grid(a.shape, a.dtype)
+    assert gx * tscan.STRIP == 2560 and gy == B
+    assert threads == tscan.THREADS and min(gx * gy, 132) >= 80
+
+
+@pytest.mark.parametrize("B,T,D", SWEEP_ROWS + [(1, 33, 50), (2, 1, 7)])
+def test_rglru_grid_covers_every_channel(B, T, D):
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.empty((B, T, D), dtype=dtype, device="meta")
+        (gx, gy), threads = tscan.grid(a.shape, a.dtype)
+        assert gx * tscan.STRIP >= D > (gx - 1) * tscan.STRIP
+        assert (gy, threads) == (B, tscan.THREADS)
+        # the chain lanes step 8 at a time through chunks of 8 KB of a, b
+        n = tscan.chunk(dtype)
+        assert n % 8 == 0 and 2 * n * tscan.STRIP * a.element_size() == 8192
+
+
+def test_rglru_grid_rejects_what_is_not_compiled():
+    with pytest.raises(TypeError):
+        tscan.grid((1, 4, 8), torch.float16)
+
+
+def test_rglru_grid_matches_the_compiled_instance():
+    """STRIP and THREADS are csrc/rglru_scan.cu's one instance: strips of
+    16 channels, a chain warp and the mover warps."""
+    src = (Path(tscan.__file__).resolve().parents[2] / "csrc"
+           / "rglru_scan.cu").read_text()
+    assert re.findall(r"launch_sw<T, (\d+)>", src) == [str(tscan.STRIP)]
+    movers = re.search(r"^constexpr int MOVERS = (\d+);", src, re.M)
+    assert 32 + 32 * int(movers.group(1)) == tscan.THREADS
+
+
+def test_rglru_vector_copies_need_aligned_strides():
+    ab = torch.zeros((2, 5, 2 * 384))
+    assert tscan._vec_ok(ab[..., :384]) and tscan._vec_ok(ab[..., 384:])
+    assert not tscan._vec_ok(torch.zeros((2, 5, 51))[..., 1:])

@@ -6,6 +6,9 @@ range where the Pallas kernel's chunked rescaling leaves fp32 is kept as
 an expected failure of the reference.  Inputs are made with numpy from a
 seed and given to both packages."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,3 +144,99 @@ def _t(*shape, dtype=torch.float32):
 def test_wkv6_rejects_unsupported(args, err):
     with pytest.raises(err):
         twkv.wkv6(*args)
+
+
+# rwkv6-3b's K4 shapes (B, T) at H40 D64: phase e's prompts, with phase a's
+# serving rows among them; then phase a's sweep rows (B, T, H, D)
+SERVED = [(1, 77), (1, 256), (1, 1000), (1, 4096), (2, 128)]
+SWEEP_ROWS = [(2, 128, 2, 32), (1, 64, 4, 16), (1, 96, 1, 64)]
+
+
+def _fill(shape, dtype, sms=132):
+    """(warps that step the state, SMs that get a block) in the launch of
+    :func:`twkv.grid` on ``sms`` SMs: each block's threads less the
+    producers, less the warps of a head's last block that lie wholly past
+    D (a warp steps 32 / (D/4) column pairs)."""
+    D = shape[3]
+    cb = twkv.plan(shape, dtype)
+    (gx, gy, gz), threads = twkv.grid(shape, dtype)
+    per_block = (threads - twkv.PRODUCERS) // 32
+    columns_a_warp = 32 // (D // twkv.TILE[0]) * twkv.TILE[1]
+    last = -(-(D - (gx - 1) * cb) // columns_a_warp)
+    warps = gy * gz * ((gx - 1) * per_block + min(per_block, last))
+    return warps, min(gx * gy * gz, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", SERVED)
+def test_wkv6_grid_fills_the_card(B, T, dtype):
+    """On an H100's 132 SMs the served shapes run at least 4 x 132 warps
+    that step the state on at least 118 SMs (0.9 of them), and at B1 no
+    SM holds two blocks."""
+    r = torch.empty((B, T, 40, 64), dtype=dtype, device="meta")
+    (gx, gy, gz), threads = twkv.grid(r.shape, r.dtype)
+    cb = twkv.plan(r.shape, r.dtype)
+    assert cb == twkv.COLUMN_BLOCK[64] and gx == -(-64 // cb)
+    assert (gy, gz) == (40, B)
+    stepping = threads - twkv.PRODUCERS
+    assert stepping == cb // 2 * (64 // 4) and stepping % 32 == 0
+    warps, sms = _fill(r.shape, r.dtype)
+    assert warps >= 4 * 132 and sms >= 118
+    assert B > 1 or gx * gy * gz <= 132
+
+
+@pytest.mark.parametrize("cb,sms", [(24, 120), (64, 40), (32, 80),
+                                    (8, 132), (28, 120)])
+def test_wkv6_fill_counts_the_plan(monkeypatch, cb, sms):
+    """The count follows the plan: every column pair is stepped by one
+    warp's lanes whatever the column block (a narrower last block idles
+    its warps past D), and a plan of 64 or 32 columns a block leaves
+    SMs without a block, which the check above refuses."""
+    monkeypatch.setitem(twkv.COLUMN_BLOCK, 64, cb)
+    assert _fill((1, 1000, 40, 64), torch.bfloat16) == (640, sms)
+
+
+def test_wkv6_plan_matches_the_compiled_instances():
+    """COLUMN_BLOCK is the list of (D, columns per block) instances that
+    csrc/wkv6.cu compiles, and the thread tile and producers are its."""
+    src = (Path(twkv.__file__).resolve().parents[2] / "csrc"
+           / "wkv6.cu").read_text()
+    compiled = dict(map(int, m) for m in re.findall(
+        r"^  REPRO_WKV6_CASE\((\d+), (\d+)\)$", src, re.M))
+    assert compiled == twkv.COLUMN_BLOCK
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert (int(consts["RT"]), int(consts["CT"])) == twkv.TILE
+    assert int(consts["PRODUCERS"]) == twkv.PRODUCERS
+
+
+@pytest.mark.parametrize("B,T,H,D", SWEEP_ROWS + [(1, 33, 3, 128),
+                                                  (3, 1, 2, 32)])
+def test_wkv6_plan_picks_a_compiled_instance(B, T, H, D):
+    for dtype in (torch.float32, torch.bfloat16):
+        r = torch.empty((B, T, H, D), dtype=dtype, device="meta")
+        cb = twkv.plan(r.shape, r.dtype)
+        assert cb == twkv.COLUMN_BLOCK[D]
+        (gx, _, _), threads = twkv.grid(r.shape, r.dtype)
+        assert gx * cb >= D > (gx - 1) * cb
+        # whole warps: the D/4 threads of a column pair share one
+        assert (threads - twkv.PRODUCERS) % 32 == 0 and 32 % (D // 4) == 0
+        assert threads - twkv.PRODUCERS <= 256
+        assert twkv.plan(r.shape, r.dtype) == cb           # pure
+
+
+@pytest.mark.parametrize("shape,dtype,err", [
+    ((1, 4, 2, 24), torch.float32, ValueError),      # no such head width
+    ((1, 4, 2, 256), torch.bfloat16, ValueError),
+    ((1, 4, 2, 64), torch.float16, TypeError),
+])
+def test_wkv6_plan_rejects_what_is_not_compiled(shape, dtype, err):
+    with pytest.raises(err):
+        twkv.plan(shape, dtype)
+
+
+def test_wkv6_vector_copies_need_aligned_strides():
+    x = torch.zeros((2, 5, 3, 4 * 64))
+    assert twkv._vec_ok(torch.zeros((2, 5, 3, 64)))
+    assert twkv._vec_ok(x[..., 64:128])                # a fused slice
+    assert not twkv._vec_ok(torch.zeros((2, 5, 3, 65))[..., 1:])
+    assert twkv.chunk(64) == 32 and twkv.chunk(128) == 16
