@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-seven phases; any mismatch raises, so the script exits non-zero:
+eight phases; any mismatch raises, so the script exits non-zero:
 
 (a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
     grouped-matmul kernels against their plain torch versions on the
@@ -75,6 +75,22 @@ seven phases; any mismatch raises, so the script exits non-zero:
     attention of the bf16 serving runs (d, f, g) takes the tensor-core
     route, every one of their fp32 checks the SIMT route.
 
+(h) the fleet layer: examples/fleet.py's rack (four carfield SoCs of two
+    tenant slots, the four MLPerf Tiny classes at their published widths)
+    with numeric execution on the card: contention-aware placement, the
+    router with the placement's demand split, and the rebalancer; an
+    open-loop trace of 40 arrivals of each class at about 1/3 of its alone
+    rate, mobilenet HIGH with a deadline of 2.5 x its alone time, and the
+    SoC hosting mobilenet failing halfway through mobilenet's arrivals.
+    No request may drop; every result, and a probe request, is held to
+    ``execute_graph`` on CPU tensors at 1e-4; the probe's inputs served on
+    the failing SoC before the failure, on mobilenet's destination after
+    it, and by the reference plan of the destination's tiling give the
+    same bits; the GEMM must launch.  It prints the compile time, the
+    placement, each migration's recovery_s, the trace's wall time and
+    requests/s, each class's device busy time by its reference plan and
+    the phase's peak memory.
+
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
 
@@ -88,6 +104,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -167,13 +184,7 @@ def main() -> int:
     c_sums = mm.sum_launches
     print(f"phase c launches by route: {c_routes}; the GEMM's chunk-sum "
           f"kernel (calls that split K): {c_sums}")
-    unreadable = sum(n for (m, a_ok, b_ok), n in gemms.items()
-                     if not (b_ok and (a_ok or m <= mm.GEMV_MAX_M)))
-    if sum(gemms.values()) != c_launches["matmul"] \
-            or c_routes["matmul"]["scalar"] != unreadable:
-        raise AssertionError(f"phase c: {c_routes['matmul']['scalar']} "
-                             f"GEMMs on the scalar route, {unreadable} of "
-                             f"{sum(gemms.values())} need it")
+    unreadable = check_scalar_route(mm, gemms, "phase c")
     print(f"phase c: {unreadable} GEMMs on the scalar route, none that a "
           f"vector route could read")
 
@@ -184,6 +195,10 @@ def main() -> int:
         print(f"phase {phase} LM serving ({spec['arch']}): "
               f"{time.perf_counter() - t0:.2f} s, launches "
               f"{by_path[phase]}")
+    t0 = time.perf_counter()
+    by_path["h"] = phase_fleet(torch, dev, smi[0], counted)
+    print(f"phase h fleet: {time.perf_counter() - t0:.2f} s, launches "
+          f"{by_path['h']}")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
     # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
@@ -792,11 +807,10 @@ def vector_readable(t) -> bool:
         for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
 
 
-def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960):
-    """The rwkv6 tenant at the widths of configs/rwkv6_3b.py beside the
-    vision tenant, one layer deep, random weights from seeds.  Returns the
-    requests served and the runtime's GEMM calls counted by (M, A vector
-    readable, B vector readable)."""
+@contextlib.contextmanager
+def gemm_operands():
+    """Count the runtime's GEMM calls on the card, by (M, A vector
+    readable, B vector readable), while the block runs."""
     from repro_torch.core import runtime as rt
     gemms = {}
     gemm = rt._matmul
@@ -809,9 +823,33 @@ def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960):
         return gemm(a, b)
     rt._matmul = recorded
     try:
-        served = _serve(torch, dev, d, ffn)
+        yield gemms
     finally:
         rt._matmul = gemm
+
+
+def check_scalar_route(mm, gemms, what) -> int:
+    """A GEMM takes the scalar route only where no vector route can read
+    its operands (B 16-byte readable, and A too unless M <= 8 puts it on
+    gemv); ``gemms`` are the calls counted by :func:`gemm_operands` since
+    the launch counts were reset.  Returns the GEMMs that need it."""
+    unreadable = sum(n for (m, a_ok, b_ok), n in gemms.items()
+                     if not (b_ok and (a_ok or m <= mm.GEMV_MAX_M)))
+    if sum(gemms.values()) != mm.launches \
+            or mm.routes["scalar"] != unreadable:
+        raise AssertionError(f"{what}: {mm.routes['scalar']} GEMMs on the "
+                             f"scalar route, {unreadable} of "
+                             f"{sum(gemms.values())} need it")
+    return unreadable
+
+
+def phase_serve(torch, dev, d: int = 2560, ffn: int = 8960):
+    """The rwkv6 tenant at the widths of configs/rwkv6_3b.py beside the
+    vision tenant, one layer deep, random weights from seeds.  Returns the
+    requests served and the runtime's GEMM calls counted by (M, A vector
+    readable, B vector readable)."""
+    with gemm_operands() as gemms:
+        served = _serve(torch, dev, d, ffn)
     return served, gemms
 
 
@@ -1193,6 +1231,195 @@ def phase_lm(torch, dev, card, counted, spec):
     if failed:
         raise AssertionError(f"{cfg.name} decode-vs-prefill beyond "
                              f"tolerance: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase h
+
+# examples/fleet.py's fleet: the four MLPerf Tiny classes on four carfield
+# SoCs of two tenant slots each, at that script's compile budgets
+FLEET_CLASSES = ("autoencoder", "ds_cnn", "mobilenet", "resnet")
+FLEET_HIGH = "mobilenet"        # the deadline-carrying class; its SoC fails
+FLEET_PER_CLASS = 40            # arrivals of each class (the example: 8 s)
+
+
+def fleet_trace(contention, Priority):
+    """examples/fleet.py's open-loop trace, cut short: each class arrives
+    every 3 x its alone time (about 1/3 utilization), from 0.4 of that
+    period, FLEET_PER_CLASS times; FLEET_HIGH is HIGH with a deadline of
+    2.5 x its alone time.  Returns the rows and the failure instant:
+    halfway through FLEET_HIGH's arrivals."""
+    deadline_s = 2.5 * contention.alone_s(FLEET_HIGH)
+    trace = []
+    for c in FLEET_CLASSES:
+        period = 3.0 * contention.alone_s(c)
+        high = c == FLEET_HIGH
+        for k in range(FLEET_PER_CLASS):
+            trace.append(((0.4 + k) * period, c,
+                          Priority.HIGH if high else Priority.NORMAL,
+                          deadline_s if high else None))
+    trace.sort(key=lambda row: row[0])
+    period = 3.0 * contention.alone_s(FLEET_HIGH)
+    return trace, (0.4 + FLEET_PER_CLASS / 2) * period
+
+
+def phase_fleet(torch, dev, card, counted):
+    """(h) The fleet layer on the card: place, route, fail a SoC, migrate.
+    Returns each kernel's launches over the trace."""
+    from repro_torch.core import runtime as rt
+    from repro_torch.fleet import (ContentionModel, FailureEvent, Fleet,
+                                   FleetConfig, FleetRebalancer,
+                                   FleetRouter, PlanCache,
+                                   place_contention_aware,
+                                   replay_open_loop)
+    from repro_torch.models import edge
+    from repro_torch.serve.admission import Priority
+    from repro_torch.soc.carfield import carfield_patterns, carfield_soc
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = FleetConfig(
+        soc_factory=lambda: (carfield_soc(), carfield_patterns()),
+        n_socs=4, capacity=2, requested_tiles=8,
+        time_budget_s=0.5, joint_time_budget_s=1.0,
+        lazy_joint_time_budget_s=0.5, incremental_time_budget_s=0.5,
+        execute=True, device=str(dev))
+    graphs = [edge.ALL_MODELS[m]() for m in FLEET_CLASSES]
+    t0 = time.perf_counter()
+    cache = PlanCache(config, graphs)
+    contention = ContentionModel(cache)
+    placement = place_contention_aware(list(FLEET_CLASSES), config.n_socs,
+                                       config.capacity, contention)
+    compile_s = time.perf_counter() - t0
+    print(f"fleet: compile and placement {compile_s:.2f} s "
+          f"({cache.stats()['builds']} mixes compiled); alone ms "
+          f"{ {c: contention.alone_s(c) * 1e3 for c in FLEET_CLASSES} }")
+    print(f"fleet: placement {placement.assignment} (max rho "
+          f"{placement.max_rho:.3f})")
+    fleet = Fleet(config, graphs, cache=cache, contention=contention)
+    fleet.apply_placement(placement)
+    router = FleetRouter(fleet, split=placement.demand_split)
+    rebalancer = FleetRebalancer(fleet, router)
+    trace, t_fail = fleet_trace(contention, Priority)
+    victim = fleet.hosts_of(FLEET_HIGH)[0]
+
+    # the migration probe, before the failure: one request's inputs served
+    # on the SoC that will fail
+    g_high = cache.classes[FLEET_HIGH]
+    probe = rt.init_inputs(g_high, 123, dev)
+    rid = victim.engine.submit(FLEET_HIGH, inputs=dict(probe))
+    victim.engine.run()
+    before = victim.engine.results[rid]
+
+    reset_launches(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with gemm_operands() as gemms:
+        summary = replay_open_loop(
+            fleet, router, trace, rebalancer=rebalancer,
+            failures=[FailureEvent(at_s=t_fail, soc_id=victim.soc_id,
+                                   kind="fail")])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counted)
+    routes = dict(counted["matmul"].routes)
+    unreadable = check_scalar_route(counted["matmul"], gemms, "phase h")
+    audit = summary["router"]
+    print(f"fleet: {len(trace)} requests ({FLEET_PER_CLASS} of each "
+          f"class), SoC {victim.soc_id} (hosting {victim.classes}) failed at "
+          f"{t_fail * 1e3:.3f} ms of the analytic clock; served "
+          f"{audit['served']} of {audit['submitted']}, dropped "
+          f"{audit['dropped']}, requeued {audit['requeued']}; HIGH deadline "
+          f"attainment {summary['per_class']['HIGH']['slo_attainment']}")
+    print(f"fleet: trace wall {wall:.3f} s, {len(trace) / wall:.1f} "
+          f"requests/s [{card}]")
+    print(f"fleet: launches {launches}; K1 by route {routes} ({unreadable} "
+          f"GEMMs need the scalar route: operands no vector route can "
+          f"read), chunk sums {counted['matmul'].sum_launches}")
+    records = rebalancer.stats()["records"]
+    for m in records:
+        print(f"fleet: migration {m['class_name']} soc{m['src_soc']} -> "
+              f"soc{m['dst_soc']} (cache hit {m['cache_hit']}, seeded "
+              f"{m['seeded_occupancies']}, analyzer errors "
+              f"{m['analyzer_errors']}): recovery_s {m['recovery_s']}")
+    if (audit["dropped"] or audit["queued"] or audit["rejected"]
+            or audit["served"] != audit["submitted"]
+            or audit["submitted"] != len(trace)
+            or summary["served"] != len(trace) + 1):
+        raise AssertionError(f"fleet: served {summary['served']} (with the "
+                             f"probe) of {len(trace)} + 1; audit {audit}")
+    if launches["matmul"] == 0:
+        raise AssertionError("fleet: the GEMM kernel never launched")
+    moved = [m for m in records if m["class_name"] == FLEET_HIGH]
+    if len(moved) != 1 or any(m["analyzer_errors"] for m in records):
+        raise AssertionError(f"fleet: migrations {records}")
+
+    # every served result, the probe's too, against the CPU oracle
+    cpu_params = {c: _to(cache.params_for(c), "cpu") for c in FLEET_CLASSES}
+    n = 0
+    for eng in fleet.engines():
+        for rid, out in eng.results.items():
+            req = eng.done[rid]
+            g = eng.compiled.graphs[req.tenant]
+            want = rt.execute_graph(g, _to(req.inputs, "cpu"),
+                                    cpu_params[g.name])
+            _assert_close(torch, out, want, f"fleet {g.name} rid {rid}")
+            n += 1
+    print(f"fleet: {n} results match the CPU oracle at 1e-4")
+
+    # the probe again, on the destination after the failure: the same bits,
+    # and those of the reference plan of the tiling the destination serves
+    dst = fleet.instances[moved[0]["dst_soc"]]
+    rid = dst.engine.submit(FLEET_HIGH, inputs=dict(probe))
+    dst.engine.run()
+    after = dst.engine.results[rid]
+    idx = dst.engine.resolve(FLEET_HIGH)
+    plan = dst.mc.plan_for([idx])
+    ref = dst.mc.session.reference_plan(idx, plan.tenants[0])
+    want = rt.execute_plan(ref, probe, cache.params_for(FLEET_HIGH))
+    torch.cuda.synchronize()
+    for t in g_high.outputs:
+        if not (torch.equal(before[t], after[t])
+                and torch.equal(after[t], want[t])):
+            raise AssertionError(
+                f"fleet: {FLEET_HIGH} {t} on soc{victim.soc_id} before the "
+                f"failure, on soc{dst.soc_id} after it and by the reference "
+                f"plan are not bitwise equal (max abs differences "
+                f"{(before[t] - after[t]).abs().max().item()}, "
+                f"{(after[t] - want[t]).abs().max().item()})")
+    print(f"fleet: {FLEET_HIGH} probe bitwise equal on soc{victim.soc_id} "
+          f"before the failure, on soc{dst.soc_id} after it and by the "
+          f"reference plan")
+
+    # one request of each class by its compile-alone reference plan: the
+    # kernels it runs and the card's busy time
+    for c in FLEET_CLASSES:
+        plan = cache.mc_for((c,)).tenant_plan(0)
+        inputs = rt.init_inputs(cache.classes[c], 7, dev)
+        params = cache.params_for(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.execute_plan(plan, inputs, params)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        busy, kernels, top = _device_busy_s(
+            torch, lambda: rt.execute_plan(plan, inputs, params))
+        share = ("not measured" if kernels == 0 else
+                 f"{1 - busy / wall1:.3f}")
+        print(f"fleet profile {c}: {len(plan.order)} plan nodes, "
+              f"{kernels} kernels, device busy {busy * 1e3:.3f} ms of "
+              f"{wall1 * 1e3:.3f} ms, idle share {share} [{card}]; top "
+              f"kernels (ms) {top[:6]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"fleet: peak memory {peak:.3f} GB over {len(fleet.engines())} "
+          f"engines, {sum(len(i.retired) for i in fleet.instances)} "
+          f"retired [{card}]")
+    print(json.dumps({"fleet": {
+        "card": card, "compile_s": compile_s,
+        "placement": placement.assignment, "requests": len(trace),
+        "trace_s": wall, "requests_per_s": len(trace) / wall,
+        "recovery_s": [m["recovery_s"] for m in records],
+        "requeued": audit["requeued"], "peak_gb": peak,
+        "launches": launches, "matmul_routes": routes}}))
     return launches
 
 

@@ -797,3 +797,54 @@ def test_moe_decode_matches_forward_on_card(cuda, arch, monkeypatch):
     for t in range(10, 29):
         lg, cache = moe.decode_step(cfg, dev, cache, x[:, t])
         _close(lg, full[:, t], 1e-4, 1e-4)
+
+
+def test_fleet_migration_is_bitwise_on_card(cuda):
+    """tests/test_fleet.py's migration check on the card: class 'a' served
+    alone on SoC0, SoC0 fails, 'a' moves next to 'b' on SoC1; the same
+    inputs give the same bits there, and those of the reference plan of
+    the tiling SoC1 serves (K1's fixed-order split, deterministic
+    cuDNN)."""
+    from repro_torch.core.runtime import execute_plan, init_inputs
+    from repro_torch.fleet import (Fleet, FleetConfig, FleetRebalancer,
+                                   FleetRouter, Placement)
+    from repro_torch.soc.testbed import (FORCED_DMA_BW, FORCED_L2_KIB,
+                                         dense_chain, two_acc_soc)
+    config = FleetConfig(
+        soc_factory=lambda: two_acc_soc(FORCED_L2_KIB, FORCED_DMA_BW),
+        n_socs=2, capacity=2, requested_tiles=4, time_budget_s=0.25,
+        joint_time_budget_s=0.4, lazy_joint_time_budget_s=0.25,
+        incremental_time_budget_s=0.25, execute=True, precompile="singles")
+    assert config.device == "cuda"
+    fleet = Fleet(config, [dense_chain("a", [64] * 5),
+                           dense_chain("b", [48] * 4)])
+    fleet.apply_placement(Placement(assignment=[("a",), ("b",)],
+                                    method="manual"))
+    reb = FleetRebalancer(fleet, FleetRouter(fleet))
+    inputs = init_inputs(fleet.cache.classes["a"], seed=123)
+    params = fleet.cache.params_for("a")
+    assert all(t.is_cuda for t in params.values())
+
+    src = fleet.instances[0]
+    before = mm.launches
+    rid = src.engine.submit("a", inputs=dict(inputs))
+    src.engine.run()
+    out_before = src.engine.results[rid]
+    assert mm.launches > before
+
+    recs = reb.fail(0, at_s=1.0)
+    assert [r.class_name for r in recs] == ["a"]
+    dst = fleet.instances[recs[0].dst_soc]
+    rid = dst.engine.submit("a", inputs=dict(inputs))
+    dst.engine.run()
+    out_after = dst.engine.results[rid]
+    idx = dst.engine.resolve("a")
+    plan = dst.mc.plan_for([idx])
+    want = execute_plan(dst.mc.session.reference_plan(idx, plan.tenants[0]),
+                        inputs, params)
+    torch.cuda.synchronize()
+    assert out_before.keys() == out_after.keys() == want.keys()
+    for t in want:
+        assert out_after[t].is_cuda
+        assert torch.equal(out_before[t], out_after[t]), t
+        assert torch.equal(out_after[t], want[t]), t

@@ -34,6 +34,8 @@ COPIES = [
     "configs/llava_next_mistral_7b.py", "configs/olmoe_1b_7b.py",
     "configs/qwen3_32b.py", "configs/qwen3_8b.py",
     "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
+    "analysis/lockcheck.py", "analysis/mutate.py", "analysis/scan_mixes.py",
+    "fleet/__init__.py", "fleet/router.py", "fleet/rebalance.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -85,6 +87,8 @@ import repro_torch.kernels.rwkv_scan.rwkv_scan
 import repro_torch.kernels.rglru_scan.rglru_scan
 import repro_torch.kernels.grouped_matmul.grouped_matmul
 import repro_torch.configs.registry
+import repro_torch.fleet, repro_torch.analysis.mutate
+import repro_torch.analysis.lockcheck, repro_torch.analysis.scan_mixes
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 assert not bad, bad
@@ -104,7 +108,7 @@ def test_serve_imports_with_jax_and_repro_blocked():
 HISTORY = re.compile(r"\bPR[- ]?\d")
 
 
-def _code(text: str) -> str:
+def _tree(text: str) -> ast.Module:
     """The module's syntax tree with every docstring removed."""
     tree = ast.parse(text)
     for node in ast.walk(tree):
@@ -114,7 +118,11 @@ def _code(text: str) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(text: str) -> str:
+    return ast.dump(_tree(text))
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -139,3 +147,43 @@ def test_copy_equals_original(rel):
             f"{rel}:{n + 1}-{end} differs beyond the package name")
         n = end
     assert _code(port) == _code(orig)
+
+
+# the port's fleet placement is the original but for its device seam: the
+# config's device, the parameters made on it and the engines built on it
+SEAM = ("FleetConfig", "PlanCache.params_for", "SoCInstance.host")
+
+
+def _cut_seam(tree: ast.Module) -> dict:
+    """Replace each class or method named in ``SEAM`` by ``pass``; returns
+    the syntax of what was cut, by name."""
+    cut = {}
+
+    def visit(body, prefix):
+        for n, node in enumerate(body):
+            if not isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+                continue
+            name = prefix + node.name
+            if name in SEAM:
+                cut[name] = ast.dump(node)
+                body[n] = ast.Pass()
+            elif isinstance(node, ast.ClassDef):
+                visit(node.body, name + ".")
+
+    visit(tree.body, "")
+    return cut
+
+
+def test_placement_differs_from_original_only_in_the_device_seam():
+    rel = "fleet/placement.py"
+    port = _tree((PORT / rel).read_text().replace("repro_torch", "repro"))
+    orig = _tree((SRC / "repro" / rel).read_text())
+    port_cut, orig_cut = _cut_seam(port), _cut_seam(orig)
+    assert sorted(port_cut) == sorted(orig_cut) == sorted(SEAM)
+    assert ast.dump(port) == ast.dump(orig)
+    for name in SEAM:
+        assert port_cut[name] != orig_cut[name], name
+        assert "'device'" in port_cut[name], name
+        assert "'device'" not in orig_cut[name], name
+    text = (PORT / rel).read_text()
+    assert not any(HISTORY.search(line) for line in text.splitlines())
