@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-eight phases; any mismatch raises, so the script exits non-zero:
+nine phases; any mismatch raises, so the script exits non-zero:
 
 (a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
     grouped-matmul kernels against their plain torch versions on the
@@ -90,6 +90,24 @@ eight phases; any mismatch raises, so the script exits non-zero:
     placement, each migration's recovery_s, the trace's wall time and
     requests/s, each class's device busy time by its reference plan and
     the phase's peak memory.
+
+(i) training: internlm2-1.8b (configs/internlm2_1_8b.py), the only
+    dense model that trains on one card with its AdamW state.  First the
+    backward kernels of RMSNorm and flash attention against their plain
+    versions at every instance the path launches (4096 x 2048 bf16 and
+    256 x 2048 fp32; B4 S1024 H16/8 Dh128 bf16 causal and B1 S256 fp32),
+    a windowed row and Dh 64 and 256, timed beside the plain version, the
+    backward of ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
+    (yardsticks, never on the path) and the bound.  Then 2 layers at full
+    width in fp32, one remat step's loss and every gradient on the card
+    against the CPU plain path (relative L2 1e-3).  Then the model at full
+    width and depth in bf16, 5 remat steps of ``launch/train.py``'s step
+    (AdamW, warmup 1) on one fixed 4 x 1024 batch: every gradient leaf
+    finite and non-zero, the loss falling, the exact forward (remat runs
+    each layer's twice) and backward launches; a checkpoint after step 2
+    restored bitwise and step 3 taken again from it (loss within 1e-3);
+    tokens/s, device busy and idle share of a profiled step, the top
+    kernels, one AdamW update's time alone, and peak memory.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -199,6 +217,11 @@ def main() -> int:
     by_path["h"] = phase_fleet(torch, dev, smi[0], counted)
     print(f"phase h fleet: {time.perf_counter() - t0:.2f} s, launches "
           f"{by_path['h']}")
+    t0 = time.perf_counter()
+    by_path["i"], bwd, bwd_rows = phase_train(torch, dev, smi[0], counted,
+                                              sweep)
+    print(f"phase i training ({TRAIN_ARCH}): {time.perf_counter() - t0:.2f}"
+          f" s, forward launches {by_path['i']}, backward launches {bwd}")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
     # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
@@ -212,6 +235,24 @@ def main() -> int:
             raise RuntimeError(f"{k['name']} never launched on its path")
         if k["name"] == "matmul":
             k["sum_launches"] = c_sums
+    # the backward kernels, launched by phase i's training steps
+    for name, fwd_name in (("rmsnorm_bwd", "rmsnorm"),
+                           ("flash_attention_bwd", "flash_attention")):
+        r = bwd_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": next(k["replaces"] for k in kernels
+                             if k["name"] == fwd_name),
+            "launches": bwd[fwd_name],
+            "launches_by_path": {"i": bwd[fwd_name]},
+            "shape": f"{r['case']} {r['dtype']}",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+        if bwd[fwd_name] == 0:
+            raise RuntimeError(f"{name} never launched on its path")
 
     print(smi[0])
     print(json.dumps({"kernel_sweep": sweep}))
@@ -257,10 +298,12 @@ def _kernel_name(line: str) -> str:
 
 
 def reset_launches(counted) -> None:
-    """Set every kernel wrapper's launch count (and route counts, and the
-    GEMM's chunk-sum count) to 0."""
+    """Set every kernel wrapper's launch count (and route counts, the
+    backward kernels' counts and the GEMM's chunk-sum count) to 0."""
     for mod in counted.values():
         mod.launches = 0
+        if hasattr(mod, "bwd_launches"):
+            mod.bwd_launches = 0
         for route in getattr(mod, "routes", {}):
             mod.routes[route] = 0
     counted["matmul"].sum_launches = 0
@@ -1428,7 +1471,8 @@ def _device_busy_s(torch, fn):
     number of kernels, the six costliest kernel names with their ms and
     last the ms of RMSNorm's, WKV6's and the RG-LRU scan's kernels), from
     a ``torch.profiler`` trace; busy time is the union of the kernels'
-    intervals, so overlapping kernels count once."""
+    intervals, so overlapping kernels count once.  The last entries also
+    give the backward kernels of K3 and K2 (in K2's sum too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1453,8 +1497,372 @@ def _device_busy_s(torch, fn):
     top += [(label, sum(t for n, t in by_name.items() if key in n))
             for label, key in (("K2 rms_*_kernel", "rms_"),
                                ("K4 wkv6_kernel", "wkv6_kernel"),
-                               ("K5 rglru_kernel", "rglru_kernel"))]
+                               ("K5 rglru_kernel", "rglru_kernel"),
+                               ("K3 backward fa_bwd_*", "fa_bwd_"),
+                               ("K2 backward rms_bwd_*", "rms_bwd_"))]
     return busy * 1e-6, len(events), [(n[:60], t * 1e-3) for n, t in top]
+
+
+# ---------------------------------------------------------------- phase i
+
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_B, TRAIN_S = 4, 1024      # one fixed batch of 4 x 1024 tokens
+TRAIN_STEPS = 5
+TRAIN_SAVE_AFTER = 2            # steps; restored and continued once
+CHECK_LAYERS, CHECK_B, CHECK_S = 2, 1, 256   # the fp32 card-vs-CPU step
+CHECK_TOL = 1e-3                # relative L2 a gradient leaf, relative loss
+# backward rows: (B, S, H, KV, Dh, causal, window, dtype, what): the
+# training path's instance first, then the fp32 check's, a windowed one
+# and the other tensor-core head widths
+FA_BWD_ROWS = [
+    (4, 1024, 16, 8, 128, True, None, "bfloat16", "internlm2-1.8b"),
+    (1, 256, 16, 8, 128, True, None, "float32", "internlm2-1.8b fp32 check"),
+    (2, 1024, 16, 8, 128, True, 256, "bfloat16", "window 256"),
+    (2, 1024, 16, 8, 64, True, None, "bfloat16", "Dh 64"),
+    (1, 1024, 8, 4, 256, True, None, "bfloat16", "Dh 256"),
+]
+# (rows, width, dtype, what): ln1, ln2 and ln_f of the training path and
+# of the fp32 check
+RMS_BWD_ROWS = [(TRAIN_B * TRAIN_S, 2048, "bfloat16", "internlm2-1.8b"),
+                (CHECK_B * CHECK_S, 2048, "float32",
+                 "internlm2-1.8b fp32 check")]
+# a backward row's tolerance, relative to the largest |gradient| of each
+# output: bf16 rounds each output once (2^-9) and reads the forward's bf16
+# output in D = rowsum(dO * O); fp32 sums in other orders
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def backward_rows(torch, dev, rms, fa, sweep):
+    """Each backward kernel at every instance the training path launches,
+    held to its plain version and timed by phase a's method beside the
+    plain version, the library call's backward (never on the path) and
+    the bound.  Returns the rows that stand for each in the kernels
+    line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                       attention_mask)
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    from repro_torch.launch.time_k1k2 import FLUSH_BYTES, time_ms
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    peaks = {"float32": FP32_FLOPS, "bfloat16": BF16_FLOPS}
+    names = {"float32": "fp32", "bfloat16": "bf16"}
+    entries = {}
+
+    def held(kernel, case, dt, got, want):
+        err = 0.0
+        for g, w in zip(got, want):
+            diff = (g.float() - w.float()).abs().max().item()
+            err = max(err, diff)
+            scale = w.float().abs().max().item()
+            if not diff <= BWD_TOL[dt] * scale:
+                raise AssertionError(f"{kernel} {case} {names[dt]}: max abs "
+                                     f"err {diff} beyond {BWD_TOL[dt]} x "
+                                     f"max |want| {scale}")
+        return err
+
+    def row(kernel, case, dt, err, fns, flops, nbytes):
+        ms = {k: time_ms(torch, f, flush) for k, f in fns.items()}
+        b_ms, b_by = bound(flops, nbytes, peaks[dt])
+        r = {"kernel": kernel, "case": case, "dtype": names[dt],
+             "max_abs_err": err, **ms, "bound_ms": b_ms, "bound_by": b_by}
+        sweep.append(r)
+        print(f"backward {kernel} {case} {names[dt]}: {ms['ms']:.4f} ms "
+              f"(plain {ms['plain_ms']:.4f}, library {ms['library_ms']:.4f},"
+              f" bound {b_ms:.5f} by {b_by}), max abs err {err:.3e}")
+        return r
+
+    for rows, d, dt, what in RMS_BWD_ROWS:
+        dtype = dtypes[dt]
+        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        g = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        before = rms.bwd_launches
+        got = rms.rmsnorm_bwd(x, g, dy)
+        if rms.bwd_launches != before + 2:
+            raise AssertionError("rmsnorm backward: not two launches")
+        err = held("rmsnorm_bwd", what, dt, got, rmsnorm_bwd_ref(x, g, dy))
+        xl, gl = (t.clone().requires_grad_(True) for t in (x, g))
+        y_lib = F.rms_norm(xl, (d,), gl, 1e-6)
+        case = f"{what} {rows}x{d} with g"
+        r = row("rmsnorm_bwd", case, dt, err,
+                {"ms": lambda: rms.rmsnorm_bwd(x, g, dy),
+                 "plain_ms": lambda: rmsnorm_bwd_ref(x, g, dy),
+                 "library_ms": lambda: torch.autograd.grad(
+                     y_lib, (xl, gl), dy, retain_graph=True)},
+                10.0 * rows * d,
+                (3 * rows * d + 2 * d) * x.element_size())
+        entries.setdefault("rmsnorm_bwd", r)
+
+    sdpa = F.scaled_dot_product_attention
+    for B, S, H, KV, Dh, causal, win, dt, what in FA_BWD_ROWS:
+        dtype = dtypes[dt]
+        q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
+        out = fa.flash_attention(q, k, v, causal=causal, window=win)
+        before = fa.bwd_launches
+        got = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
+        if fa.bwd_launches != before + 3:
+            raise AssertionError("flash_attention backward: not three "
+                                 "launches")
+        err = held("flash_attention_bwd", what, dt, got,
+                   attention_bwd_ref(q, k, v, do, causal, win))
+        pos = torch.arange(S, device=dev)
+        allowed = attention_mask(pos, pos, causal, win)
+        pairs = int(allowed.sum().item())
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        o_lib = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                 if win is None else
+                 sdpa(qt, kt, vt, attn_mask=allowed, enable_gqa=True))
+        do_t = do.transpose(1, 2)
+        case = (f"{what} B{B} S{S} H{H}/{KV} Dh{Dh} causal"
+                f"{'' if win is None else f' window {win}'}")
+        r = row("flash_attention_bwd", case, dt, err,
+                {"ms": lambda: fa.flash_attention_bwd(q, k, v, out, do,
+                                                      causal, win),
+                 "plain_ms": lambda: attention_bwd_ref(q, k, v, do, causal,
+                                                       win),
+                 "library_ms": lambda: torch.autograd.grad(
+                     o_lib, (qt, kt, vt), do_t, retain_graph=True)},
+                # five products of 2 pairs Dh: S, dP, dV, dK, dQ
+                5 * 2.0 * B * H * pairs * Dh,
+                # q, out, dO read and dq written; k, v read, dk, dv written
+                (2 * q.numel() + 2 * out.numel() + 2 * k.numel()
+                 + 2 * v.numel()) * q.element_size())
+        entries.setdefault("flash_attention_bwd", r)
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _relative_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp(min=1e-30)).item()
+
+
+def train_check(torch, dev, card):
+    """internlm2-1.8b at full width (d 2048, vocab 92544), CHECK_LAYERS
+    layers, fp32, one batch of CHECK_B x CHECK_S: the loss and every
+    gradient of the remat train step's loss through the forward and
+    backward kernels on the card, against the same on CPU tensors (the
+    plain versions)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves
+    from repro_torch.models import stacking, transformer
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              n_layers=CHECK_LAYERS, dtype="float32")
+    cpu = transformer.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    card_p = stacking.tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
+    grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    (loss_d, _), g_d = grad_fn(card_p, x.to(dev), y.to(dev))
+    t0 = time.perf_counter()
+    (loss_c, _), g_c = grad_fn(cpu, x, y)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss_d.item() - loss_c.item()) / abs(loss_c.item())
+    rels = [_relative_l2(a.cpu(), b)
+            for a, b in zip(leaves(g_d), leaves(g_c))]
+    worst = max(range(len(rels)), key=lambda i: rels[i])
+    print(f"train check {cfg.name} {CHECK_LAYERS} layers fp32 B{CHECK_B} "
+          f"S{CHECK_S}: loss card {loss_d.item():.6f}, CPU "
+          f"{loss_c.item():.6f} (relative {loss_rel:.2e}); gradients: "
+          f"{len(rels)} leaves, worst relative L2 {rels[worst]:.2e} (leaf "
+          f"{worst}), limit {CHECK_TOL:.0e}; CPU step {cpu_s:.1f} s [{card}]")
+    if loss_rel > CHECK_TOL or rels[worst] > CHECK_TOL:
+        raise AssertionError(f"train check beyond {CHECK_TOL}: loss "
+                             f"{loss_rel}, gradient leaf {worst} "
+                             f"{rels[worst]}")
+    del card_p, g_d
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, dev, card, counted, sweep):
+    """(i) Training internlm2-1.8b on the card: the backward kernels held
+    and timed, the fp32 reduced-depth check, then TRAIN_STEPS remat steps
+    at full width and depth, a checkpoint round trip and a profiled step.
+    Returns (forward launches of the counted steps, backward launches,
+    the backward kernels' rows)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    rms, fa = counted["rmsnorm"], counted["flash_attention"]
+    t0 = time.perf_counter()
+    entries = backward_rows(torch, dev, rms, fa, sweep)
+    print(f"phase i backward kernels: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_check(torch, dev, card)
+    print(f"phase i fp32 check: {time.perf_counter() - t0:.2f} s")
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=100)
+    # the launcher's step: the new params and moments written into the
+    # state it is given
+    step = make_train_step(cfg, opt_cfg, remat=True, donate=True)
+    batch = next(Pipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                     global_batch=TRAIN_B, seed=0)))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    state = (params, adamw.init(params))
+    del params
+    L = cfg.n_layers
+    norms = 2 * L + 1                       # ln1, ln2 a layer; ln_f
+    want_fwd = {"rmsnorm": (norms + 2 * L) * TRAIN_STEPS,   # + remat's
+                "flash_attention": 2 * L * TRAIN_STEPS,
+                "matmul": 0, "wkv6": 0, "rglru": 0, "grouped_matmul": 0}
+    want_bwd = {"rmsnorm": 2 * norms * TRAIN_STEPS,        # rows, dg sum
+                "flash_attention": 3 * L * TRAIN_STEPS}     # a, b, c
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+          f"AdamW fp32 moments, remat, B{TRAIN_B} S{TRAIN_S}, one fixed "
+          f"batch, {TRAIN_STEPS} steps [{card}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(counted)
+    losses, times = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = step(state[0], state[1], batch)
+        loss = new[2]["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorm = new[2]["grad_norm"].item()
+        state = new[:2]
+        if i == 1:
+            # the first moment is 0.1 x clip x grad: finite and non-zero
+            # exactly where the gradient is
+            bad = [n for n, m in enumerate(leaves(state[1].m))
+                   if not bool(torch.isfinite(m).all()) or not bool(
+                       (m != 0).any())]
+            if bad or not math.isfinite(gnorm) or gnorm == 0:
+                raise AssertionError(f"step 1: gradient leaves {bad} of "
+                                     f"{len(leaves(state[1].m))} not finite "
+                                     f"or all zero (norm {gnorm})")
+        if i == TRAIN_SAVE_AFTER:
+            t1 = time.perf_counter()
+            mgr.save(i, {"params": state[0], "opt": state[1]})
+            saved_host = tree_map(lambda t: t.cpu(), {"params": state[0],
+                                                      "opt": state[1]})
+            print(f"train: checkpoint of step {i} snapshot to host "
+                  f"{time.perf_counter() - t1:.2f} s, written in the "
+                  f"background")
+        if i == TRAIN_SAVE_AFTER + 1:
+            after_save = (loss, gnorm, tree_map(torch.clone, state[0]))
+        print(f"train step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms, "
+              f"{TRAIN_B * TRAIN_S / times[-1]:.0f} tokens/s [{card}]")
+    fwd = read_launches(counted)
+    bwd = {"rmsnorm": rms.bwd_launches, "flash_attention": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    routes = dict(fa.routes)
+    if fwd != want_fwd or bwd != want_bwd or routes != {
+            "wgmma": want_fwd["flash_attention"], "simt": 0}:
+        raise AssertionError(f"train launches forward {fwd} (flash "
+                             f"attention by route {routes}), backward "
+                             f"{bwd}; want {want_fwd}, {want_bwd}, all "
+                             f"flash attention on wgmma")
+    print(f"train launches over {TRAIN_STEPS} steps: forward {fwd} "
+          f"(flash attention by route {routes}; RMSNorm by route "
+          f"{dict(rms.routes)}), backward {bwd}: per step RMSNorm "
+          f"{norms} + {2 * L} (remat) forward, {2 * norms} backward; "
+          f"flash attention {L} + {L} forward, {3 * L} backward")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
+          f"{peak:.2f} GB [{card}]")
+
+    busy, kernels, top = _device_busy_s(torch, lambda: step(
+        state[0], state[1], batch))
+    wall = min(times[1:])
+    print(f"train profile {cfg.name} one step B{TRAIN_B} S{TRAIN_S}: "
+          f"{kernels} kernels, device busy {busy * 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f} (of the fastest unprofiled step "
+          f"{wall * 1e3:.3f} ms) [{card}]; top kernels (ms) {top}")
+    # the optimizer's share of a step: one AdamW update of the whole
+    # state alone, after a warm one (the params stand in for the grads:
+    # the same shapes and dtypes)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    adamw.update(opt_cfg, state[1], state[0], state[0])
+    torch.cuda.synchronize()
+    ev[0].record()
+    adamw.update(opt_cfg, state[1], state[0], state[0])
+    ev[1].record()
+    torch.cuda.synchronize()
+    adamw_ms = ev[0].elapsed_time(ev[1])
+    print(f"train: one AdamW update of the {n_params / 1e9:.3f} B params "
+          f"(fp32 moments) alone {adamw_ms:.3f} ms [{card}]")
+    print(json.dumps({"train": {
+        "arch": cfg.name, "card": card, "batch": TRAIN_B, "seq": TRAIN_S,
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "tokens_per_s": [TRAIN_B * TRAIN_S / t for t in times],
+        "busy_ms": busy * 1e3, "adamw_ms": adamw_ms, "peak_gb": peak}}))
+
+    # the checkpoint: restored into fresh tensors, bitwise; one step on
+    state = None
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mgr.wait()
+    write_s = time.perf_counter() - t1
+    like = tree_map(lambda t: torch.empty(0, dtype=t.dtype, device=dev),
+                    saved_host)
+    t1 = time.perf_counter()
+    restored = mgr.restore(TRAIN_SAVE_AFTER, like)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t1
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(saved_host))
+    same = [torch.equal(a, b.to(dev)) for a, b in
+            zip(leaves(restored), leaves(saved_host))]
+    if not all(same):
+        raise AssertionError(f"restore: {same.count(False)} of {len(same)} "
+                             f"leaves differ from the saved ones")
+    del saved_host
+    new = step(restored["params"], restored["opt"], batch)
+    loss, gnorm = new[2]["loss"].item(), new[2]["grad_norm"].item()
+    loss_rel = abs(loss - after_save[0]) / abs(after_save[0])
+    p_rel = max(_relative_l2(a, b) for a, b in
+                zip(leaves(new[0]), leaves(after_save[2])))
+    print(f"train checkpoint: {len(same)} leaves, {nbytes / 1e9:.2f} GB, "
+          f"the rest of the write {write_s:.2f} s after step "
+          f"{TRAIN_STEPS}, restore {read_s:.2f} s, restored leaves bitwise "
+          f"equal to the saved ones; step {TRAIN_SAVE_AFTER + 1} again from "
+          f"the restore: loss {loss:.6f} against {after_save[0]:.6f} "
+          f"(relative {loss_rel:.2e}, limit {CHECK_TOL:.0e}), grad norm "
+          f"{gnorm:.6f} against {after_save[1]:.6f}, params' worst "
+          f"relative L2 {p_rel:.2e} (torch's deterministic mode not set: "
+          f"held at {CHECK_TOL:.0e}, not bitwise) [{card}]")
+    if loss_rel > CHECK_TOL or p_rel > CHECK_TOL:
+        raise AssertionError(f"step from the restore: loss {loss_rel}, "
+                             f"params {p_rel}")
+    del restored, new, after_save
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fwd, bwd, entries
 
 
 def _leaves(tree):

@@ -50,6 +50,14 @@ SIGNATURES = {
                           _P],
     "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _I, _I,
                            _P],
+    # x, g, dy, dx, workspace, rows, d, blocks, eps, stream
+    "repro_rmsnorm_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
+                              ctypes.c_float, _P],
+    "repro_rmsnorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I,
+                               ctypes.c_float, _P],
+    # workspace, dg, blocks, d, stream
+    "repro_rmsnorm_bwd_dg_f32": [_P, _P, _I, _I, _P],
+    "repro_rmsnorm_bwd_dg_bf16": [_P, _P, _I, _I, _P],
     # q, k, v, o, B, S, H, KV, Dh, 9 strides, causal, window, scale, stream
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   ctypes.POINTER(_LL), _I, _I,
@@ -60,6 +68,14 @@ SIGNATURES = {
     "repro_flash_attention_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, ctypes.POINTER(_LL), _I, _I,
                                          ctypes.c_float, _P],
+    # stage, q, k, v, o, dO, lse, D, dq, dk, dv, B, S, H, KV, Dh, causal,
+    # window, scale, stream
+    "repro_flash_attention_bwd_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      ctypes.c_float, _P],
+    "repro_flash_attention_bwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       ctypes.c_float, _P],
     # r, k, v, w, u (fp32), y, S, B, T, H, D, columns per block, blocks
     # a head, threads a block, 12 strides, 16-byte copies, stream
     "repro_wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -205,6 +221,18 @@ def tma_readable(t) -> bool:
     s = t.stride()
     return (s[-1] == 1 and all(x > 0 and x % 8 == 0 for x in s[:-1])
             and t.data_ptr() % 16 == 0)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where grad is enabled and an operand requires grad: a kernel
+    without a backward kernel would return an output that cuts the graph,
+    and a step would look like training and be wrong."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward kernel on the card: "
+                           f"call it under torch.no_grad(), or on CPU "
+                           f"tensors (the plain version differentiates)")
 
 
 def check(rc: int, what: str) -> None:

@@ -9,19 +9,27 @@ with Dh 64, 128 or 256 that TMA can read) or the SIMT kernel
 (``"simt"``, everything else), both reading q/k/v through their strides.
 CPU tensors run the plain versions of
 :mod:`~repro_torch.kernels.flash_attention.ref` (the chunked form beyond
-1024 positions, the exact one below).
+1024 positions, the exact one below), which autograd differentiates.
+
+Where grad is enabled and q, k or v requires grad, a CUDA call goes
+through a ``torch.autograd.Function``: its forward launches the same
+kernel on the same route, and its backward :func:`flash_attention_bwd`,
+the three kernels of ``csrc/flash_attention_bwd.cu`` (row statistics,
+dK/dV, dQ).  Every other call, serving's included, launches exactly as
+before.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import (attention_chunked,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_chunked,
                                                      attention_ref)
 
 _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
@@ -29,12 +37,17 @@ _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
 HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dh
 WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernel's Dh
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # the backward kernels' Dh
+_BWD_ENTRY = {torch.float32: "repro_flash_attention_bwd_f32",
+              torch.bfloat16: "repro_flash_attention_bwd_bf16"}
+BWD_STAGES = ("stats", "dkdv", "dq")            # launched in this order
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit
 # beyond which the exact O(S^2) plain version gives way to the chunked one
 CHUNKED_THRESHOLD = 1024
 
 launches = 0               # kernel launches since the last reset
 routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
+bwd_launches = 0           # backward kernel launches (three a call)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -85,6 +98,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int]) -> torch.Tensor:
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     r = route(q, k, v)
@@ -112,3 +133,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(Dh), stream)
     _build.check(rc, f"flash_attention ({r})")
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA kernels as an autograd node: forward by the forward kernel
+    (either route), backward by :func:`flash_attention_bwd` from q, k, v,
+    the forward's output and its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``do``, given the forward's output ``out``; each in its input's shape
+    and dtype.  CUDA tensors launch ``csrc/flash_attention_bwd.cu``'s three
+    kernels (Dh in :data:`BWD_HEAD_DIMS`), two calls giving the same bits;
+    CPU tensors run
+    :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`
+    (which recomputes the output and so ignores ``out``)."""
+    _check(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
+                         f"must be q's shape {tuple(q.shape)}")
+    if window is not None and window < 0:
+        raise ValueError(f"window {window} is negative")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention backward kernel for device "
+                         f"{q.device}")
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    if Dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward takes head widths {BWD_HEAD_DIMS}, "
+                         f"got {Dh}")
+    if max(H, B) > _MAX_GRID:
+        raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
+    q, k, v, out = (t.contiguous() for t in (q, k, v, out))
+    do = do.to(q.dtype).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _build.library()
+    entry = getattr(lib, _BWD_ENTRY[q.dtype])
+    win = -1 if window is None else min(int(window), S)
+    global bwd_launches
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for stage, name in enumerate(BWD_STAGES):
+            bwd_launches += 1
+            rc = entry(stage, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, S, H, KV, Dh, int(causal), win,
+                       1.0 / math.sqrt(Dh), stream)
+            _build.check(rc, f"flash_attention backward ({name})")
+    return dq, dk, dv

@@ -1,10 +1,10 @@
 """Plain torch versions of flash attention (GQA + causal + sliding window):
-the exact softmax and the chunked online-softmax form."""
+the exact softmax, the chunked online-softmax form, and the backward."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -83,3 +83,39 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
     return out.to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, causal: bool = True,
+                      window: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`attention_ref` for the output
+    gradient ``do``, in float32, each in its input's dtype: with s = scale
+    q.k over the allowed keys, P = softmax(s) (masked probabilities 0, the
+    denominator clamped at 1e-30, as the kernels have it: a row that
+    attends no key has zero gradients), D = rowsum(do * P v),
+    dv = P^T do, dS = P (do v^T - D), dq = scale dS k, dk = scale dS^T q,
+    dk and dv summed over each KV head's query heads."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    qh = q.reshape(B, S, KV, groups, Dh).float()
+    kf, vf = k.float(), v.float()
+    doh = do.reshape(B, S, KV, groups, Dh).float()
+    pos = torch.arange(S, device=q.device)
+    mask = attention_mask(pos, pos, causal, window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh, kf) * scale
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, torch.zeros_like(p))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, vf)
+    delta = (doh.permute(0, 2, 3, 1, 4) * o).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, doh)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", doh, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qh) * scale
+    return (dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

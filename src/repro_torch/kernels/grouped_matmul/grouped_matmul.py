@@ -59,6 +59,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return grouped_matmul_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped_matmul kernel for device {x.device}")
+    _build.refuse_grad("grouped_matmul", x, w)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)

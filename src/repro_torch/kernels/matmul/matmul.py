@@ -197,6 +197,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return matmul_ref(a, b)
     if dev.type != "cuda":
         raise ValueError(f"no matmul kernel for device {dev}")
+    _build.refuse_grad("matmul", a, b)
     a3, b3, lead = _operands(a, b)
     M, K = a3.shape[1:]
     N = b3.shape[-1]

@@ -94,6 +94,7 @@ def rglru(a: torch.Tensor, b: torch.Tensor
         return rglru_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no rglru kernel for device {a.device}")
+    _build.refuse_grad("rglru", a, b)
     B = a.shape[0]
     if B > _MAX_GRID:
         raise ValueError(f"B={B} exceeds the grid limit {_MAX_GRID}")

@@ -6,26 +6,41 @@ route :func:`route` picks from the width, the dtype and the alignment
 (never the row count): ``"warp"`` (narrow rows, several to a warp),
 ``"block"`` (wide rows, one to a block) or ``"scalar"`` (what 16-byte
 vectors cannot read).  CPU tensors run
-:func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`.
+:func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`, which autograd
+differentiates.
+
+Where grad is enabled and x or g requires grad, a CUDA call goes through
+a ``torch.autograd.Function``: its forward launches the same kernel on
+the same route, and its backward :func:`rmsnorm_bwd`, the kernels of
+``csrc/rmsnorm_bwd.cu`` (dx, and dg as per-block partial sums added in
+block order by a second launch).  Every other call, serving's included,
+launches exactly as before.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ENTRY = {torch.float32: "repro_rmsnorm_f32",
           torch.bfloat16: "repro_rmsnorm_bf16"}
+_BWD_ENTRY = {torch.float32: ("repro_rmsnorm_bwd_f32",
+                              "repro_rmsnorm_bwd_dg_f32"),
+              torch.bfloat16: ("repro_rmsnorm_bwd_bf16",
+                               "repro_rmsnorm_bwd_dg_bf16")}
 _ROUTE_ID = {"warp": 0, "block": 1, "scalar": 2}
 WARP_MAX_VECS = 128        # 16-byte vectors a warp holds (4 a lane)
 BLOCK_MAX_VECS = 4096      # 512 threads x 8 vectors
+BWD_MAX_WIDTH = 8192       # 256 threads x 32 columns
+BWD_BLOCKS_PER_SM = 2      # the backward's row blocks: at most 2 an SM
 
 launches = 0               # kernel launches since the last reset
 routes = {"warp": 0, "block": 0, "scalar": 0}      # the same, by route
+bwd_launches = 0           # backward kernel launches (dx, then dg's sum)
 
 
 def _check(x: torch.Tensor, g: Optional[torch.Tensor]) -> None:
@@ -77,6 +92,15 @@ def rmsnorm(x: torch.Tensor, g: Optional[torch.Tensor] = None,
         return rmsnorm_ref(x, g, eps)
     if dev.type != "cuda":
         raise ValueError(f"no rmsnorm kernel for device {dev}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (g is not None and g.requires_grad)):
+        return _RMSNorm.apply(x, g, eps)
+    return _forward(x, g, eps)
+
+
+def _forward(x: torch.Tensor, g: Optional[torch.Tensor],
+             eps: float) -> torch.Tensor:
+    dev = x.device
     d = x.shape[-1]
     x2 = _rows(x)
     rows = x2.shape[0]
@@ -99,3 +123,77 @@ def rmsnorm(x: torch.Tensor, g: Optional[torch.Tensor] = None,
             _build.current_stream(dev.index))
     _build.check(rc, f"rmsnorm ({r})")
     return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The CUDA kernel as an autograd node: forward by the forward kernel,
+    backward by :func:`rmsnorm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _forward(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd(x, g, dy, ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dg if ctx.needs_input_grad[1] else None, None)
+
+
+def rmsnorm_bwd(x: torch.Tensor, g: Optional[torch.Tensor],
+                dy: torch.Tensor, eps: float = 1e-6
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dx, dg) of :func:`rmsnorm` at x, g for the output gradient dy: dx
+    in x's shape and dtype, dg in g's (None without a gain).  CUDA
+    tensors launch ``csrc/rmsnorm_bwd.cu``: the row kernel, then (with a
+    gain) the ordered sum of its blocks' partial dg, two calls giving the
+    same bits; CPU tensors run
+    :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_bwd_ref`."""
+    _check(x, g)
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
+                         f"match x {tuple(x.shape)} on {x.device}")
+    dev = x.device
+    if dev.type == "cpu":
+        return rmsnorm_bwd_ref(x, g, dy, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"no rmsnorm backward kernel for device {dev}")
+    d = x.shape[-1]
+    if d > BWD_MAX_WIDTH:
+        raise ValueError(f"rmsnorm backward takes widths up to "
+                         f"{BWD_MAX_WIDTH}, got {d}")
+    x2 = x.reshape(-1, d).contiguous()
+    dy2 = dy.to(x.dtype).reshape(-1, d).contiguous()
+    rows = x2.shape[0]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    dg = None if g is None else torch.empty_like(g)
+    if rows == 0:
+        return dx, None if g is None else dg.zero_()
+    if g is not None:
+        g = g.contiguous()
+    # each block takes a contiguous run of rows and writes one partial dg
+    # row: the count fixes the order of dg's sum
+    blocks = min(rows, BWD_BLOCKS_PER_SM * _build.sm_count(dev.index))
+    ws = (None if g is None else
+          torch.empty((blocks, d), dtype=torch.float32, device=dev))
+    rows_entry, sum_entry = _BWD_ENTRY[x.dtype]
+    lib = _build.library()
+    global bwd_launches
+    with _build.on_device(dev.index):
+        stream = _build.current_stream(dev.index)
+        bwd_launches += 1
+        rc = getattr(lib, rows_entry)(
+            x2.data_ptr(), None if g is None else g.data_ptr(),
+            dy2.data_ptr(), dx.data_ptr(),
+            None if ws is None else ws.data_ptr(), rows, d, blocks, eps,
+            stream)
+        _build.check(rc, "rmsnorm backward")
+        if g is not None:
+            bwd_launches += 1
+            rc = getattr(lib, sum_entry)(ws.data_ptr(), dg.data_ptr(),
+                                         blocks, d, stream)
+            _build.check(rc, "rmsnorm backward (dg sum)")
+    return dx, dg

@@ -125,6 +125,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 kernel for device {r.device}")
+    _build.refuse_grad("wkv6", r, k, v, w, u)
     B, T, H, D = r.shape
     if H > _MAX_GRID or B > _MAX_GRID:
         raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")

@@ -144,8 +144,11 @@ def _zero_hist(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
                        dtype=h.dtype, device=h.device)
 
 
-def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B,S) int tokens -> logits (B,S,V)."""
+def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """x: (B,S) int tokens -> logits (B,S,V); ``remat``
+    recomputes each repeating unit in backward
+    (:func:`~repro_torch.models.stacking.scan_blocks`)."""
     h = p["embed"]["table"][x.long()]
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
@@ -161,7 +164,7 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         return h + L.gelu_mlp(blk["mlp"], L.rmsnorm(blk["ln2"], h))
 
     h = ST.scan_blocks(h, p["blocks"], p["tail"], body, cfg.unit,
-                       cfg.n_layers)
+                       cfg.n_layers, remat)
     h = L.rmsnorm(p["ln_f"], h)
     return L.linear(p["head"], h).float()
 

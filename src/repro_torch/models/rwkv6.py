@@ -150,14 +150,17 @@ def _block(blk: Params, cfg: ModelConfig, h: torch.Tensor,
     return h + m, {"wkv": s, "tm_x": tm_x, "cm_x": cm_x}
 
 
-def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B,S) int tokens -> logits (B,S,V)."""
+def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """x: (B,S) int tokens -> logits (B,S,V); ``remat``
+    recomputes each repeating unit in backward
+    (:func:`~repro_torch.models.stacking.scan_blocks`)."""
     h = p["embed"]["table"][x.long()]
     zero = torch.zeros((h.shape[0], cfg.d_model), dtype=h.dtype,
                        device=h.device)
     h = ST.scan_blocks(h, p["blocks"], p["tail"],
                        lambda h, blk, u, g: _block(blk, cfg, h, zero)[0],
-                       1, cfg.n_layers)
+                       1, cfg.n_layers, remat)
     h = L.rmsnorm(p["ln_f"], h)
     return L.linear(p["head"], h).float()
 

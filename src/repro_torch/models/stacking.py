@@ -17,16 +17,9 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of ``tree`` (and of same-shaped ``rest``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
+from repro_torch.core.pytree import tree_map
 
 
 def init_stacked(make_layer: Callable[[int], Any], n_layers: int, unit: int
@@ -48,20 +41,47 @@ def init_stacked(make_layer: Callable[[int], Any], n_layers: int, unit: int
     return [s for s in slots if s is not None], tail
 
 
-def unstack_slot(slot: Any, g: int) -> Any:
-    return tree_map(lambda x: x[g], slot)
+def unstack_all(slot: Any, G: int) -> List[Any]:
+    """The G layers of a stacked slot, as views of its leaves, by one
+    ``unbind`` a leaf: under autograd the G layers' gradients reach the
+    stacked leaf by one stack, where indexing ``x[g]`` would build a
+    zero-filled gradient of the whole stack for every layer."""
+    parts = []
+    tree_map(lambda x: parts.append(x.unbind(0)), slot)
+
+    def layer(g):
+        it = iter(parts)          # tree_map's leaf order, as above
+        return tree_map(lambda x: next(it)[g], slot)
+
+    return [layer(g) for g in range(G)]
 
 
 def scan_blocks(h: torch.Tensor, slots: List[Any], tail: List[Any],
                 body: Callable[[torch.Tensor, Any, int, int], torch.Tensor],
-                unit: int, n_layers: int) -> torch.Tensor:
+                unit: int, n_layers: int, remat: bool = False
+                ) -> torch.Tensor:
     """h -> h through all layers; ``body(h, blk, u, g)`` applies one layer
     (``g`` is -1 for stacked layers, as inside the JAX scan, and the layer
-    index for tail layers)."""
+    index for tail layers).  ``remat``: each repeating unit of stacked
+    layers runs under ``torch.utils.checkpoint`` (as the JAX package wraps
+    its scan body in ``jax.checkpoint``): backward keeps only the unit's
+    input and runs its forward again; tail layers are not checkpointed,
+    as in the JAX package.  Gradients reach the stacked leaves through
+    :func:`unstack_all`'s views of them."""
     G = n_layers // unit
-    for g in range(G):
+
+    def unit_body(h, slices):
         for u in range(unit):
-            h = body(h, unstack_slot(slots[u], g), u, -1)
+            h = body(h, slices[u], u, -1)
+        return h
+
+    layers = [unstack_all(s, G) for s in slots]
+    for g in range(G):
+        slices = [layers_u[g] for layers_u in layers]
+        if remat:
+            h = checkpoint(unit_body, h, slices, use_reentrant=False)
+        else:
+            h = unit_body(h, slices)
     for j, blk in enumerate(tail):
         h = body(h, blk, j % unit, G * unit + j)
     return h
@@ -74,11 +94,12 @@ def scan_blocks_collect(h: torch.Tensor, slots: List[Any], tail: List[Any],
     cache built during prefill): body(h, blk, u) -> (h, emitted).
     Returns (h, [stacked emissions per slot], [tail emissions])."""
     G = n_layers // unit
+    layers = [unstack_all(s, G) for s in slots]
     per_g = []
     for g in range(G):
         outs = []
         for u in range(unit):
-            h, e = body(h, unstack_slot(slots[u], g), u)
+            h, e = body(h, layers[u][g], u)
             outs.append(e)
         per_g.append(outs)
     emitted_slots = [tree_map(lambda *xs: torch.stack(xs),
@@ -99,10 +120,11 @@ def scan_blocks_cached(h: torch.Tensor, slots: List[Any], tail: List[Any],
     cache entry is a view into the stacked caches, and the body updates it
     IN PLACE, so the stacked caches come back as the updated caches."""
     G = n_layers // unit
+    layers = [unstack_all(s, G) for s in slots]
+    entries = [unstack_all(c, G) for c in cache_slots]
     for g in range(G):
         for u in range(unit):
-            h = body(h, unstack_slot(slots[u], g),
-                     unstack_slot(cache_slots[u], g), u)
+            h = body(h, layers[u][g], entries[u][g], u)
     for j, (blk, ce) in enumerate(zip(tail, cache_tail)):
         h = body(h, blk, ce, j % unit)
     return h, cache_slots, cache_tail

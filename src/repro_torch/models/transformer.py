@@ -74,8 +74,11 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: (B,S) int tokens or (B,S,D) embeds -> logits (B,S,V)."""
+def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """x: (B,S) int tokens or (B,S,D) embeds -> logits (B,S,V); ``remat``
+    recomputes each repeating unit in backward
+    (:func:`~repro_torch.models.stacking.scan_blocks`)."""
     h = _embed_in(cfg, p, x)
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
@@ -87,7 +90,7 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         return h + L.swiglu(blk["mlp"], L.rmsnorm(blk["ln2"], h))
 
     h = ST.scan_blocks(h, p["blocks"], p["tail"], body, cfg.unit,
-                       cfg.n_layers)
+                       cfg.n_layers, remat)
     h = L.rmsnorm(p["ln_f"], h)
     return L.linear(p["head"], h).float()
 

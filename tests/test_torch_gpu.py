@@ -848,3 +848,231 @@ def test_fleet_migration_is_bitwise_on_card(cuda):
         assert out_after[t].is_cuda
         assert torch.equal(out_before[t], out_after[t]), t
         assert torch.equal(out_after[t], want[t]), t
+
+
+# ------------------------------------------------------- training (backward)
+
+def _rel_err(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = want.float().abs().max().clamp(min=1e-30)
+    return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+# the backward kernels' tolerance, relative to the largest |gradient|:
+# fp32 sums in other orders; bf16 rounds each output once (2^-9) and the
+# forward's bf16 output enters D = rowsum(dO * O)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4096, 2048), (37, 128), (9, 100),
+                                   (3, 5, 96), (5, 8192), (1, 2560),
+                                   (600, 64), (70, 384), (11, 1000)])
+@pytest.mark.parametrize("gain", [True, False])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, gain):
+    """dx and dg of the backward kernel (internlm2-1.8b's 4096 x 2048 among
+    the shapes; every instance: 1, 2, 4, 8, 16 and 32 columns a thread)
+    against rmsnorm_bwd_ref; two launches with a gain (the rows, then dg's
+    ordered sum), one without; two calls bitwise equal."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    x = _randn(shape, dtype, cuda, 31)
+    g = (1 + 0.1 * _randn(shape[-1:], "float32", cuda, 32)).to(
+        DTYPES[dtype]) if gain else None
+    dy = _randn(shape, dtype, cuda, 33)
+    before = rms.bwd_launches
+    dx, dg = rms.rmsnorm_bwd(x, g, dy)
+    assert rms.bwd_launches == before + (2 if gain else 1)
+    want_dx, want_dg = rmsnorm_bwd_ref(x, g, dy)
+    assert _rel_err(dx, want_dx) <= BWD_TOL[dtype]
+    if gain:
+        assert _rel_err(dg, want_dg) <= BWD_TOL[dtype]
+    else:
+        assert dg is None
+    again = rms.rmsnorm_bwd(x, g, dy)
+    assert torch.equal(dx, again[0])
+    assert not gain or torch.equal(dg, again[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_autograd_on_card(cuda, dtype):
+    """Under grad the wrapper is an autograd node: the forward kernel on
+    its route, the backward kernel in backward; under no_grad, or with
+    nothing that requires grad, it launches as serving does."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    x0 = _randn((64, 2048), dtype, cuda, 34)
+    g0 = (1 + 0.1 * _randn((2048,), "float32", cuda, 35)).to(DTYPES[dtype])
+    dy = _randn((64, 2048), dtype, cuda, 36)
+    x, g = (t.clone().requires_grad_(True) for t in (x0, g0))
+    f, b, blk = rms.launches, rms.bwd_launches, rms.routes["block"]
+    y = rms.rmsnorm(x, g)
+    assert y.grad_fn is not None
+    assert (rms.launches, rms.routes["block"]) == (f + 1, blk + 1)
+    assert torch.equal(y.detach(), rms.rmsnorm(x0, g0))
+    dx, dg = torch.autograd.grad(y, (x, g), dy)
+    assert rms.bwd_launches == b + 2
+    want = rmsnorm_bwd_ref(x0, g0, dy)
+    assert _rel_err(dx, want[0]) <= BWD_TOL[dtype]
+    assert _rel_err(dg, want[1]) <= BWD_TOL[dtype]
+    with torch.no_grad():
+        assert rms.rmsnorm(x, g).grad_fn is None
+    assert rms.rmsnorm(x0, g0).grad_fn is None
+    assert rms.bwd_launches == b + 2
+
+
+# B, S, H, KV, Dh, causal, window, dtype: internlm2-1.8b's training shape,
+# then every instance the backward compiles (Dh 16, 32, 64, 80, 128, 256
+# in both dtypes), GQA 1-8, windows, bidirectional, ragged S (not a
+# multiple of the 64- or 32-row tile)
+FA_BWD_CASES = [
+    (4, 1024, 16, 8, 128, True, None, "bfloat16"),
+    (1, 256, 16, 8, 128, True, None, "float32"),
+    (2, 333, 4, 2, 128, True, 100, "float32"),
+    (1, 300, 4, 1, 64, True, None, "bfloat16"),
+    (1, 129, 4, 2, 64, True, None, "float32"),
+    (1, 130, 4, 2, 256, True, 50, "bfloat16"),
+    (1, 97, 2, 1, 256, True, None, "float32"),
+    (1, 100, 2, 2, 80, False, None, "float32"),
+    (1, 70, 2, 2, 80, True, None, "bfloat16"),
+    (2, 70, 4, 4, 16, False, 20, "float32"),
+    (1, 50, 2, 1, 16, True, None, "bfloat16"),
+    (1, 96, 8, 1, 32, True, None, "bfloat16"),
+    (1, 80, 4, 2, 32, True, 30, "float32"),
+    (1, 65, 2, 2, 64, False, None, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win,dtype", FA_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, B, S, H, KV, Dh,
+                                                  causal, win, dtype):
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q = _randn((B, S, H, Dh), dtype, cuda, 40)
+    k = _randn((B, S, KV, Dh), dtype, cuda, 41)
+    v = _randn((B, S, KV, Dh), dtype, cuda, 42)
+    do = _randn((B, S, H, Dh), dtype, cuda, 43)
+    out = fa.flash_attention(q, k, v, causal=causal, window=win)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
+    assert fa.bwd_launches == before + 3
+    want = attention_bwd_ref(q, k, v, do, causal, win)
+    for name, a, b in zip("qkv", got, want):
+        err = _rel_err(a, b)
+        assert err <= BWD_TOL[dtype], f"d{name}: {err}"
+    again = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_autograd_on_card(cuda):
+    """Under grad: the forward kernel (wgmma route for bf16 Dh 128) as an
+    autograd node whose backward is the three kernels; no_grad and
+    operands that require nothing launch as serving does."""
+    q0 = _randn((2, 256, 8, 128), "bfloat16", cuda, 44)
+    k0 = _randn((2, 256, 2, 128), "bfloat16", cuda, 45)
+    v0 = _randn((2, 256, 2, 128), "bfloat16", cuda, 46)
+    do = _randn((2, 256, 8, 128), "bfloat16", cuda, 47)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+    f, b, wg = fa.launches, fa.bwd_launches, fa.routes["wgmma"]
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    assert (fa.launches, fa.routes["wgmma"]) == (f + 1, wg + 1)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert fa.bwd_launches == b + 3
+    for a, w in zip(grads, fa.flash_attention_bwd(q0, k0, v0, out.detach(),
+                                                  do)):
+        assert torch.equal(a, w)
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+    assert fa.flash_attention(q0, k0, v0).grad_fn is None
+    assert fa.bwd_launches == b + 6
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """K1, K4, K5 and K6 have no backward kernel yet: their CUDA wrappers
+    refuse an operand that requires grad while grad is enabled, and launch
+    under no_grad."""
+    a = _randn((8, 64), "float32", cuda, 50).requires_grad_(True)
+    b = _randn((64, 16), "float32", cuda, 51)
+    r, k, v, w = (_randn((1, 16, 2, 32), "float32", cuda, 52 + i)
+                  for i in range(4))
+    w = torch.sigmoid(w)
+    u = _randn((2, 32), "float32", cuda, 56)
+    ga = torch.sigmoid(_randn((1, 16, 64), "float32", cuda, 57))
+    gb = _randn((1, 16, 64), "float32", cuda, 58)
+    x = _randn((2, 8, 64), "float32", cuda, 59)
+    wg = _randn((2, 64, 16), "float32", cuda, 60)
+    calls = [(lambda: mm.matmul(a, b)),
+             (lambda: wkv.wkv6(r.requires_grad_(True), k, v, w, u)),
+             (lambda: scan.rglru(ga, gb.requires_grad_(True))),
+             (lambda: gmm.grouped_matmul(x, wg.requires_grad_(True)))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def test_serving_launches_unchanged_under_no_grad(cuda):
+    """A bf16 prefill and decode step launch the same kernels on the same
+    routes with grad enabled (no operand requires grad) and under no_grad,
+    and no backward kernel."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen3-8b"),
+                              head_dim=64)
+    params = transformer.init(torch.Generator(device=cuda).manual_seed(0),
+                              cfg, cuda)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40))).to(cuda)
+
+    def serve():
+        mods = (rms, fa)
+        before = [(m.launches, m.bwd_launches, dict(m.routes)) for m in mods]
+        logits, cache = transformer.prefill(cfg, params, x, 48)
+        transformer.decode_step(cfg, params, cache, logits.argmax(-1))
+        return [(m.launches - n, m.bwd_launches - nb,
+                 {r: m.routes[r] - c[r] for r in c})
+                for m, (n, nb, c) in zip(mods, before)]
+
+    with_grad = serve()
+    with torch.no_grad():
+        without = serve()
+    assert with_grad == without
+    assert with_grad[1][0] == cfg.n_layers and with_grad[1][2]["wgmma"] == \
+        cfg.n_layers
+    assert with_grad[0][1] == with_grad[1][1] == 0
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One fp32 train step (remat) of a small internlm2 on the card, through
+    the forward and backward kernels, against the same step on CPU tensors
+    (the plain versions): the loss, every gradient (relative L2 1e-3), and
+    the launches: each norm and attention twice forward (remat), once
+    backward."""
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves
+    from repro_torch.models import stacking, transformer
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_smoke_config("internlm2-1.8b"),
+                              d_model=256, head_dim=64, dtype="float32")
+    cpu = transformer.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96)))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96)))
+    grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    counts = (rms.launches, rms.bwd_launches, fa.launches, fa.bwd_launches)
+    (loss_d, _), g_d = grad_fn(dev, x.to(cuda), y.to(cuda))
+    L = cfg.n_layers
+    assert (rms.launches - counts[0], rms.bwd_launches - counts[1],
+            fa.launches - counts[2], fa.bwd_launches - counts[3]) == \
+        (2 * 2 * L + 1, 2 * (2 * L + 1), 2 * L, 3 * L)
+    (loss_c, _), g_c = grad_fn(cpu, x, y)
+    assert abs(loss_d.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    g_d, g_c = leaves(g_d), leaves(g_c)
+    for n, (a, b) in enumerate(zip(g_d, g_c)):
+        rel = ((a.cpu() - b).norm() / b.norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, f"leaf {n}: relative L2 {rel}"
+        assert torch.isfinite(a).all() and a.abs().sum() > 0, n
+    assert len(g_d) == len(leaves(cpu))

@@ -36,6 +36,7 @@ COPIES = [
     "configs/recurrentgemma_2b.py", "configs/rwkv6_3b.py",
     "analysis/lockcheck.py", "analysis/mutate.py", "analysis/scan_mixes.py",
     "fleet/__init__.py", "fleet/router.py", "fleet/rebalance.py",
+    "data/pipeline.py", "fault/supervisor.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -89,6 +90,10 @@ import repro_torch.kernels.grouped_matmul.grouped_matmul
 import repro_torch.configs.registry
 import repro_torch.fleet, repro_torch.analysis.mutate
 import repro_torch.analysis.lockcheck, repro_torch.analysis.scan_mixes
+import repro_torch.launch.train, repro_torch.train.step
+import repro_torch.optim.adamw, repro_torch.optim.compress
+import repro_torch.checkpoint.manager, repro_torch.fault.supervisor
+import repro_torch.data.pipeline, repro_torch.core.pytree
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 assert not bad, bad
