@@ -95,16 +95,21 @@ nine phases; any mismatch raises, so the script exits non-zero:
     dense model that trains on one card with its AdamW state.  First the
     backward kernels of RMSNorm and flash attention against their plain
     versions at every instance the path launches (4096 x 2048 bf16 and
-    256 x 2048 fp32; B4 S1024 H16/8 Dh128 bf16 causal and B1 S256 fp32),
-    a windowed row and Dh 64 and 256, timed beside the plain version, the
-    backward of ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
-    (yardsticks, never on the path) and the bound.  Then 2 layers at full
-    width in fp32, one remat step's loss and every gradient on the card
-    against the CPU plain path (relative L2 1e-3).  Then the model at full
-    width and depth in bf16, 5 remat steps of ``launch/train.py``'s step
-    (AdamW, warmup 1) on one fixed 4 x 1024 batch: every gradient leaf
-    finite and non-zero, the loss falling, the exact forward (remat runs
-    each layer's twice) and backward launches; a checkpoint after step 2
+    256 x 2048 fp32; B4 S1024 H16/8 Dh128 bf16 causal on the tensor-core
+    route and B1 S256 fp32 on the SIMT route), a windowed row, Dh 64 and
+    256, a ragged S and window 0 (every gradient exactly 0), each naming
+    its route, timed beside the plain version, the backward of
+    ``F.rms_norm`` and of ``F.scaled_dot_product_attention`` (yardsticks,
+    never on the path; SDPA's backend pinned, flash for causal rows,
+    efficient for masked ones, and timed in turns with the kernel) and the
+    bound.  Then 2 layers at full width in fp32, one remat step's loss and
+    every gradient on the card against the CPU plain path (relative L2
+    1e-3; the attention backward all on the SIMT route).  Then the model
+    at full width and depth in bf16, 5 remat steps of ``launch/train.py``'s
+    step (AdamW, warmup 1) on one fixed 4 x 1024 batch: every gradient
+    leaf finite and non-zero, the loss falling, the exact forward (remat
+    runs each layer's twice) and backward launches, the attention
+    backward's all on the tensor-core route; a checkpoint after step 2
     restored bitwise and step 3 taken again from it (loss within 1e-3);
     tokens/s, device busy and idle share of a profiled step, the top
     kernels, one AdamW update's time alone, and peak memory.
@@ -250,7 +255,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"kernel_route": r["route"], "library": r["library"],
+                "launches_by_route": bwd[f"{fwd_name}_routes"]}
+               if f"{fwd_name}_routes" in bwd else {})})
         if bwd[fwd_name] == 0:
             raise RuntimeError(f"{name} never launched on its path")
 
@@ -299,13 +307,16 @@ def _kernel_name(line: str) -> str:
 
 def reset_launches(counted) -> None:
     """Set every kernel wrapper's launch count (and route counts, the
-    backward kernels' counts and the GEMM's chunk-sum count) to 0."""
+    backward kernels' counts by route and the GEMM's chunk-sum count) to
+    0."""
     for mod in counted.values():
         mod.launches = 0
         if hasattr(mod, "bwd_launches"):
             mod.bwd_launches = 0
         for route in getattr(mod, "routes", {}):
             mod.routes[route] = 0
+        for route in getattr(mod, "bwd_routes", {}):
+            mod.bwd_routes[route] = 0
     counted["matmul"].sum_launches = 0
 
 
@@ -1512,14 +1523,18 @@ TRAIN_SAVE_AFTER = 2            # steps; restored and continued once
 CHECK_LAYERS, CHECK_B, CHECK_S = 2, 1, 256   # the fp32 card-vs-CPU step
 CHECK_TOL = 1e-3                # relative L2 a gradient leaf, relative loss
 # backward rows: (B, S, H, KV, Dh, causal, window, dtype, what): the
-# training path's instance first, then the fp32 check's, a windowed one
-# and the other tensor-core head widths
+# training path's instance first, then the fp32 check's (SIMT route), a
+# windowed one, the other tensor-core head widths, a ragged S (no
+# multiple of the 64-row tile) and window 0 (every gradient exactly 0);
+# each row names the route it took
 FA_BWD_ROWS = [
     (4, 1024, 16, 8, 128, True, None, "bfloat16", "internlm2-1.8b"),
     (1, 256, 16, 8, 128, True, None, "float32", "internlm2-1.8b fp32 check"),
     (2, 1024, 16, 8, 128, True, 256, "bfloat16", "window 256"),
     (2, 1024, 16, 8, 64, True, None, "bfloat16", "Dh 64"),
     (1, 1024, 8, 4, 256, True, None, "bfloat16", "Dh 256"),
+    (2, 1000, 16, 8, 128, True, None, "bfloat16", "ragged S"),
+    (1, 1024, 16, 8, 128, True, 0, "bfloat16", "window 0"),
 ]
 # (rows, width, dtype, what): ln1, ln2 and ln_f of the training path and
 # of the fp32 check
@@ -1562,15 +1577,29 @@ def backward_rows(torch, dev, rms, fa, sweep):
                                      f"max |want| {scale}")
         return err
 
-    def row(kernel, case, dt, err, fns, flops, nbytes):
-        ms = {k: time_ms(torch, f, flush) for k, f in fns.items()}
+    def row(kernel, case, dt, err, fns, flops, nbytes, extra=None):
+        # the kernel and the library call in turns (kernel, library,
+        # library, kernel), each by time_ms; then the plain version
+        runs = {"ms": [], "library_ms": []}
+        for key in ("ms", "library_ms", "library_ms", "ms"):
+            if fns[key] is not None:
+                runs[key].append(time_ms(torch, fns[key], flush))
+        ms = {k: sum(v) / len(v) if v else None for k, v in runs.items()}
+        ms["plain_ms"] = time_ms(torch, fns["plain_ms"], flush)
         b_ms, b_by = bound(flops, nbytes, peaks[dt])
         r = {"kernel": kernel, "case": case, "dtype": names[dt],
-             "max_abs_err": err, **ms, "bound_ms": b_ms, "bound_by": b_by}
+             "max_abs_err": err, **ms, "ms_runs": runs["ms"],
+             "library_ms_runs": runs["library_ms"], "bound_ms": b_ms,
+             "bound_by": b_by, **(extra or {})}
         sweep.append(r)
-        print(f"backward {kernel} {case} {names[dt]}: {ms['ms']:.4f} ms "
-              f"(plain {ms['plain_ms']:.4f}, library {ms['library_ms']:.4f},"
-              f" bound {b_ms:.5f} by {b_by}), max abs err {err:.3e}")
+        lib = ("none" if ms["library_ms"] is None else
+               " then ".join(f"{t:.4f}" for t in runs["library_ms"]))
+        print(f"backward {kernel} {case} {names[dt]}"
+              f"{' route ' + r['route'] if 'route' in r else ''}: "
+              f"{' then '.join(f'{t:.4f}' for t in runs['ms'])} ms "
+              f"(plain {ms['plain_ms']:.4f}, library {lib}"
+              f"{' ' + r['library'] if 'library' in r else ''}, bound "
+              f"{b_ms:.5f} by {b_by}), max abs err {err:.3e}")
         return r
 
     for rows, d, dt, what in RMS_BWD_ROWS:
@@ -1595,7 +1624,6 @@ def backward_rows(torch, dev, rms, fa, sweep):
                 (3 * rows * d + 2 * d) * x.element_size())
         entries.setdefault("rmsnorm_bwd", r)
 
-    sdpa = F.scaled_dot_product_attention
     for B, S, H, KV, Dh, causal, win, dt, what in FA_BWD_ROWS:
         dtype = dtypes[dt]
         q = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
@@ -1603,22 +1631,22 @@ def backward_rows(torch, dev, rms, fa, sweep):
         v = torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(dtype)
         do = torch.randn(B, S, H, Dh, generator=gen, device=dev).to(dtype)
         out = fa.flash_attention(q, k, v, causal=causal, window=win)
-        before = fa.bwd_launches
+        route = fa.route_bwd(q, k, v)
+        before, by_route = fa.bwd_launches, dict(fa.bwd_routes)
         got = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
-        if fa.bwd_launches != before + 3:
-            raise AssertionError("flash_attention backward: not three "
-                                 "launches")
+        launched = {r: fa.bwd_routes[r] - n for r, n in by_route.items()}
+        if fa.bwd_launches != before + 3 or launched[route] != 3:
+            raise AssertionError(f"flash_attention backward: launches by "
+                                 f"route {launched}, want 3 on {route}")
         err = held("flash_attention_bwd", what, dt, got,
                    attention_bwd_ref(q, k, v, do, causal, win))
+        if win == 0 and any(bool(g.any()) for g in got):
+            raise AssertionError("flash_attention backward, window 0: a "
+                                 "gradient is not exactly 0")
         pos = torch.arange(S, device=dev)
         allowed = attention_mask(pos, pos, causal, win)
         pairs = int(allowed.sum().item())
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        o_lib = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-                 if win is None else
-                 sdpa(qt, kt, vt, attn_mask=allowed, enable_gqa=True))
-        do_t = do.transpose(1, 2)
+        library, lib_name = sdpa_backward(torch, q, k, v, do, win, allowed)
         case = (f"{what} B{B} S{S} H{H}/{KV} Dh{Dh} causal"
                 f"{'' if win is None else f' window {win}'}")
         r = row("flash_attention_bwd", case, dt, err,
@@ -1626,17 +1654,73 @@ def backward_rows(torch, dev, rms, fa, sweep):
                                                       causal, win),
                  "plain_ms": lambda: attention_bwd_ref(q, k, v, do, causal,
                                                        win),
-                 "library_ms": lambda: torch.autograd.grad(
-                     o_lib, (qt, kt, vt), do_t, retain_graph=True)},
+                 "library_ms": library},
                 # five products of 2 pairs Dh: S, dP, dV, dK, dQ
                 5 * 2.0 * B * H * pairs * Dh,
                 # q, out, dO read and dq written; k, v read, dk, dv written
                 (2 * q.numel() + 2 * out.numel() + 2 * k.numel()
-                 + 2 * v.numel()) * q.element_size())
+                 + 2 * v.numel()) * q.element_size(),
+                {"route": route, "library": lib_name})
+        if "flash_attention_bwd" not in entries:
+            # the training row: SDPA's backward on each backend, and
+            # unpinned, in turns (yardsticks only)
+            from torch.nn.attention import SDPBackend
+            fns = {}
+            for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION, None):
+                fn, name = sdpa_backward(torch, q, k, v, do, win, allowed,
+                                         [b])
+                if fn is not None:
+                    fns[name] = fn
+            times = {n: [] for n in fns}
+            for n in [*fns, *reversed(fns)]:
+                times[n].append(time_ms(torch, fns[n], flush))
+            print(f"backward SDPA by backend, {case} {names[dt]}: "
+                  + "; ".join(f"{n} {' then '.join(f'{t:.4f}' for t in ts)}"
+                              f" ms" for n, ts in times.items()))
+            r["sdpa_by_backend_ms"] = times
         entries.setdefault("flash_attention_bwd", r)
     del flush
     torch.cuda.empty_cache()
     return entries
+
+
+def sdpa_backward(torch, q, k, v, do, win, allowed, backends=None):
+    """(a call of SDPA's backward on these operands, the backend's name):
+    the yardstick, never on the path.  The backend is pinned with
+    ``sdpa_kernel``: flash attention for the causal rows (efficient
+    attention where flash takes no such operands, fp32), efficient
+    attention for the masked ones, or the first of ``backends`` that runs
+    (None: unpinned, PyTorch's own choice); GQA by ``enable_gqa``, else k
+    and v repeated to H heads.  (None, "none") where none runs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if backends is None:
+        backends = ([SDPBackend.FLASH_ATTENTION,
+                     SDPBackend.EFFICIENT_ATTENTION] if win is None
+                    else [SDPBackend.EFFICIENT_ATTENTION])
+    groups = q.shape[2] // k.shape[2]
+    do_t = do.transpose(1, 2)
+    for backend, gqa in itertools.product(backends, (True, False)):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if not gqa:
+            kt, vt = (t.repeat_interleave(groups, 1) for t in (kt, vt))
+        qt, kt, vt = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        try:
+            with (contextlib.nullcontext() if backend is None
+                  else sdpa_kernel([backend])):
+                o = (F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=gqa)
+                     if win is None else F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=allowed, enable_gqa=gqa))
+            torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
+        except RuntimeError:
+            continue
+        return ((lambda: torch.autograd.grad(o, (qt, kt, vt), do_t,
+                                             retain_graph=True)),
+                f"SDPA {'unpinned' if backend is None else backend.name}"
+                f"{'' if gqa else ' (k, v repeated to H heads)'}")
+    return None, "none"
 
 
 def _relative_l2(a, b) -> float:
@@ -1656,6 +1740,7 @@ def train_check(torch, dev, card):
 
     from repro_torch.configs import registry
     from repro_torch.core.pytree import leaves
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import stacking, transformer
     from repro_torch.train import step as tstep
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1667,7 +1752,13 @@ def train_check(torch, dev, card):
     x = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
     y = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
     grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    routes = dict(fa.bwd_routes)
     (loss_d, _), g_d = grad_fn(card_p, x.to(dev), y.to(dev))
+    routes = {r: fa.bwd_routes[r] - n for r, n in routes.items()}
+    if routes != {"wgmma": 0, "simt": 3 * CHECK_LAYERS}:
+        raise AssertionError(f"train check: flash attention backward "
+                             f"launches by route {routes}, want all "
+                             f"{3 * CHECK_LAYERS} on simt (fp32)")
     t0 = time.perf_counter()
     (loss_c, _), g_c = grad_fn(cpu, x, y)
     cpu_s = time.perf_counter() - t0
@@ -1679,7 +1770,8 @@ def train_check(torch, dev, card):
           f"S{CHECK_S}: loss card {loss_d.item():.6f}, CPU "
           f"{loss_c.item():.6f} (relative {loss_rel:.2e}); gradients: "
           f"{len(rels)} leaves, worst relative L2 {rels[worst]:.2e} (leaf "
-          f"{worst}), limit {CHECK_TOL:.0e}; CPU step {cpu_s:.1f} s [{card}]")
+          f"{worst}), limit {CHECK_TOL:.0e}; flash attention backward "
+          f"launches by route {routes}; CPU step {cpu_s:.1f} s [{card}]")
     if loss_rel > CHECK_TOL or rels[worst] > CHECK_TOL:
         raise AssertionError(f"train check beyond {CHECK_TOL}: loss "
                              f"{loss_rel}, gradient leaf {worst} "
@@ -1734,6 +1826,7 @@ def phase_train(torch, dev, card, counted, sweep):
                 "matmul": 0, "wkv6": 0, "rglru": 0, "grouped_matmul": 0}
     want_bwd = {"rmsnorm": 2 * norms * TRAIN_STEPS,        # rows, dg sum
                 "flash_attention": 3 * L * TRAIN_STEPS}     # a, b, c
+    want_bwd_routes = {"wgmma": want_bwd["flash_attention"], "simt": 0}
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     mgr = CheckpointManager(str(ckpt_dir), keep=1)
@@ -1780,18 +1873,21 @@ def phase_train(torch, dev, card, counted, sweep):
     fwd = read_launches(counted)
     bwd = {"rmsnorm": rms.bwd_launches, "flash_attention": fa.bwd_launches}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    routes = dict(fa.routes)
+    routes, bwd_routes = dict(fa.routes), dict(fa.bwd_routes)
     if fwd != want_fwd or bwd != want_bwd or routes != {
-            "wgmma": want_fwd["flash_attention"], "simt": 0}:
+            "wgmma": want_fwd["flash_attention"], "simt": 0} or \
+            bwd_routes != want_bwd_routes:
         raise AssertionError(f"train launches forward {fwd} (flash "
                              f"attention by route {routes}), backward "
-                             f"{bwd}; want {want_fwd}, {want_bwd}, all "
-                             f"flash attention on wgmma")
+                             f"{bwd} (flash attention by route "
+                             f"{bwd_routes}); want {want_fwd}, {want_bwd}, "
+                             f"all flash attention on wgmma")
     print(f"train launches over {TRAIN_STEPS} steps: forward {fwd} "
           f"(flash attention by route {routes}; RMSNorm by route "
-          f"{dict(rms.routes)}), backward {bwd}: per step RMSNorm "
-          f"{norms} + {2 * L} (remat) forward, {2 * norms} backward; "
-          f"flash attention {L} + {L} forward, {3 * L} backward")
+          f"{dict(rms.routes)}), backward {bwd} (flash attention by route "
+          f"{bwd_routes}): per step RMSNorm {norms} + {2 * L} (remat) "
+          f"forward, {2 * norms} backward; flash attention {L} + {L} "
+          f"forward, {3 * L} backward")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
     print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
@@ -1862,6 +1958,7 @@ def phase_train(torch, dev, card, counted, sweep):
     del restored, new, after_save
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    bwd["flash_attention_routes"] = bwd_routes
     return fwd, bwd, entries
 
 

@@ -25,35 +25,90 @@
 // products of 2 * pairs * Dh (S = QK^T, dP = dO V^T, dV, dK, dQ); at the
 // training path's shape (internlm2-1.8b, B4 S1024 H16/8 Dh128 causal bf16)
 // that is ~43 GFLOP against ~100 MB, far above the card's ratio of
-// tensor-core rate to memory rate.
+// tensor-core rate to memory rate: 0.0435 ms at 989 TFLOP/s.
 //
-// Design: a simple SIMT kernel that is right, in fp32 FMAs (tensor cores
-// are later work).  Three launches, no atomics and every sum in a fixed
-// order, so two calls give the same bits:
-//   (a) fa_bwd_stats_kernel, one block per (BT query rows, head, batch):
-//       recomputes each row's log-sum-exp over its keys (the forward
-//       kernels keep no statistics, and stay as they are) and
-//       D = rowsum(dO * O), both fp32 into a (B,H,S) workspace each.
-//   (b) fa_bwd_dkdv_kernel, one block per (BT keys, KV head, batch): keeps
-//       the tile's dK and dV in registers and walks the group's query
-//       heads, and for each the query tiles the masks allow, in order:
-//       recompute P, dP and dS, then dV += P^T dO, dK += dS^T Q.  GQA's
-//       sum over query heads happens inside the block.
-//   (c) fa_bwd_dq_kernel, one block per (BT query rows, head, batch): keeps
-//       the tile's dQ in registers and walks the key tiles its rows attend:
-//       recompute P, dP and dS, then dQ += dS K.
-// 256 threads a block.  Tiles live in shared memory as fp32 rows of Dh + 1
-// floats (an odd stride: reading one column down 16 rows meets 16 banks);
-// a score tile (BT x BT) gives each thread a (BT/16) x (BT/16) patch of
-// rows ti + 16a, columns tj + 16b, the 16 threads of a row patch being a
-// half warp (row max and sum by shuffles); a (BT x Dh) accumulator gives
-// each thread rows tr + 8a and columns tc + 32b (a warp reads one row of
-// P broadcast and 32 consecutive columns).  BT is 64 keys and queries, 32
-// at Dh 256 (shared memory: 165 KB at Dh 128, 140 KB at Dh 256).
+// Both routes make three launches; each output element is summed by one
+// block, in a fixed order (no two blocks add to one element), so two calls
+// give the same bits:
+//   (a) stats: recomputes each row's log-sum-exp over its keys (the
+//       forward kernels keep no statistics, and stay as they are) and
+//       D = rowsum(dO * O), both fp32 into a (B,H,rows) workspace each;
+//   (b) dK/dV, one block per (key tile, KV head, batch): keeps the tile's
+//       dK and dV in registers and walks the group's query heads, and for
+//       each the query tiles the masks allow, in order: recompute P, dP and
+//       dS, then dV += P^T dO, dK += dS^T Q.  GQA's sum over query heads
+//       happens inside the block;
+//   (c) dQ, one block per (query tile, head, batch): keeps the tile's dQ in
+//       registers and walks the key tiles its rows attend: recompute P, dP
+//       and dS, then dQ += dS K.  No split over keys.
+// The wrapper (kernels/flash_attention/flash_attention.py, route_bwd())
+// picks the route before it launches.
+//
+// "wgmma", bf16 with Dh 64, 128 or 256 (the bf16 training path): every
+// product on the tensor cores, wgmma fed by TMA, as the forward's
+// (csrc/flash_attention.cu).  Tiles are 64 rows (queries or keys) of Dh,
+// read through 4-D tensor maps (Dh, S, heads, B) of the contiguous tensors
+// in boxes one 64-column, 128-byte swizzle atom wide, so a box never
+// crosses a head or batch edge and rows past S arrive as zeros.  A block
+// is one warpgroup (two at Dh 256 in (b)); its thread 0 issues the loads:
+// the block's fixed tiles on one mbarrier, then a ring of 2 stages, each
+// refilled once every warp is past it (a block-wide barrier), so a stage's
+// load flies during the other stage's products.  Per 64 x 64 tile:
+//   (a) S = Q K^T (SS wgmma: A = Q, B = K, both K-major over Dh), the
+//       online max and sum in the log2 domain (scale log2(e) folded in);
+//       lse is stored in log2 units (lse2, which only this route reads),
+//       and the rows are padded to whole tiles in the workspaces;
+//   (b) S^T = K Q^T and dP^T = V dO^T (SS: A the block's K or V, B the Q or
+//       dO tile, all K-major over Dh), then P^T = exp2(S^T scale log2(e) -
+//       lse2[query]) under the masks and dS^T = P^T (dP^T - D[query]),
+//       lse2 and D per column from the stage (a 256-byte bulk copy each),
+//       then dV += P^T dO and dK += dS^T Q on register-A wgmma: P^T and
+//       dS^T rounded to bf16 pairs are, register for register, the A
+//       fragments (the m64n64 accumulator's layout), and the same Q and dO
+//       tiles are read again MN-major, the depth over their 64 rows (one
+//       tile, two descriptors: the 128-byte swizzle and one-atom boxes
+//       make both readings of one layout, as the forward reads K and V);
+//   (c) S = Q K^T and dP = dO V^T (SS), P and dS with lse2 and D per row in
+//       registers, then dQ += dS K (register A, K read MN-major).  Query
+//       tiles go out last first: causal blocks heaviest first.
+// Each product is waited for (wgmma_wait<0>, then register fences) before
+// its accumulators are read.  A masked probability is set to exactly 0
+// after the exponential, rows past S included; masks are evaluated only
+// on tiles that cross the diagonal, the window edge or S.  The epilogues
+// round dQ, dK (times the scale) and dV to bf16 into the ring and write
+// rows below S with 16-byte stores.  Registers: at Dh 128 (b) holds dK and
+// dV (128 a thread) beside S^T and dP^T (64), so its blocks are single
+// warpgroups (the 255-register cap; 384-thread blocks are held near 168)
+// and two fit an SM (about 99 KB of shared memory each); at Dh 256 dK and
+// dV alone would take 256, so one warpgroup computes S^T, P^T and dV, and
+// hands P^T over in shared memory (fp32, 16 KB, a named barrier) to the
+// second, which computes dP^T, dS^T and dK.  Rounding P and dS to bf16
+// before the second products is the one rounding the SIMT kernels do not
+// make (at most 2^-9 of each), as in the forward.
+// Expected, from arithmetic before the first run on the card: at the
+// training shape the 64 x 64 tiles on and below the diagonal execute ~73
+// GFLOP (one product in (a), four in (b), three in (c)); at 150-300
+// TFLOP/s, a quarter of the bf16 peak or less as the forward reached, that
+// is 0.25-0.5 ms a call (the SIMT kernels: 4.48 ms).
+//
+// "simt", every other call (fp32, whose contract allows no TF32; Dh 16,
+// 32 and 80): plain fp32 FMAs.  256 threads a block.  Tiles live in shared
+// memory as fp32 rows of Dh + 1 floats (an odd stride: reading one column
+// down 16 rows meets 16 banks); a score tile (BT x BT) gives each thread a
+// (BT/16) x (BT/16) patch of rows ti + 16a, columns tj + 16b, the 16
+// threads of a row patch being a half warp (row max and sum by shuffles);
+// a (BT x Dh) accumulator gives each thread rows tr + 8a and columns
+// tc + 32b (a warp reads one row of P broadcast and 32 consecutive
+// columns).  BT is 64 keys and queries, 32 at Dh 256 (shared memory:
+// 165 KB at Dh 128, 140 KB at Dh 256); the workspaces are (B,H,S).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -529,25 +584,727 @@ int launch(int stage, const void* q, const void* k, const void* v,
   float* lse = static_cast<float*>(lse_);
   float* delta = static_cast<float*>(delta_);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // bf16 at Dh 64, 128 and 256 takes the wgmma route: no SIMT instance
+  constexpr bool F32 = std::is_same<T, float>::value;
   switch (Dh) {
     case 16: return launch_dh<T, 16>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
     case 32: return launch_dh<T, 32>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
-    case 64: return launch_dh<T, 64>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
+    case 64: if constexpr (F32) return launch_dh<T, 64>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s); break;
     case 80: return launch_dh<T, 80>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
-    case 128: return launch_dh<T, 128>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
-    case 256: return launch_dh<T, 256>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
+    case 128: if constexpr (F32) return launch_dh<T, 128>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s); break;
+    case 256: if constexpr (F32) return launch_dh<T, 256>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s); break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------ wgmma route
+
+namespace wg {
+
+constexpr int ROW = 128;          // bytes of one swizzled row: 64 bf16
+constexpr int T = 64;             // rows of a tile: queries or keys
+constexpr int ATOM = T * ROW;     // one 64-column swizzle atom of a tile
+constexpr int STAGES = 2;         // ring depth of every kernel
+constexpr int MAX_DEVICES = 64;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct Cfg {
+  static constexpr int NA = DH / 64;               // swizzle atoms across Dh
+  static constexpr int TILE = NA * ATOM;           // a 64 x DH bf16 tile
+  // (b) at Dh 256: dV on one warpgroup, dK on another (dK and dV of 64
+  // keys would take 256 registers a thread on one)
+  static constexpr bool SPLIT = DH > 128;
+  static constexpr int THREADS_B = SPLIT ? 256 : 128;
+  static constexpr int LDO = DH + 8;               // epilogue tile row, bf16
+  static constexpr int EPI = T * LDO * 2;          // epilogue tile, bytes
+  static constexpr int BARS = 8 * (STAGES + 1);    // full[STAGES], fixed
+  // (a) Q, a ring of K tiles
+  static constexpr int SMEM_A = 1024 + TILE + STAGES * TILE + BARS;
+  // (b) K, V, a ring of {Q, dO, lse[64], D[64]} (1024-aligned), P^T's
+  // hand-over buffer (SPLIT)
+  static constexpr int STAGE_B = 2 * TILE + 1024;
+  static constexpr int PBUF = SPLIT ? 32 * 128 * 4 : 0;
+  static constexpr int SMEM_B =
+      1024 + 2 * TILE + STAGES * STAGE_B + PBUF + BARS;
+  // (c) Q, dO, lse and D (1024 bytes), a ring of {K, V}
+  static constexpr int STAGE_C = 2 * TILE;
+  static constexpr int SMEM_C = 1024 + 2 * TILE + 1024 + STAGES * STAGE_C +
+                                BARS;
+  static_assert(DH % 64 == 0 && NA <= 4, "Dh 64, 128 or 256");
+  static_assert(SMEM_B <= 232448 && SMEM_C <= 232448, "shared memory");
+  static_assert(2 * EPI <= STAGES * STAGE_B && EPI <= STAGES * STAGE_C,
+                "epilogue tiles must fit the ring");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// every (query, key) pair of queries [q0, q0 + 64) and keys [k0, k0 + 64)
+// attends: the tile needs no masks
+__device__ __forceinline__ bool all_attend(int q0, int k0, int S, int causal,
+                                           int window) {
+  if (q0 + T > S || k0 + T > S) return false;
+  if (causal && q0 < k0 + T - 1) return false;
+  if (window >= 0) {
+    if (q0 + T - 1 - k0 >= window) return false;
+    if (!causal && k0 + T - 1 - q0 >= window) return false;
+  }
+  return true;
+}
+
+// the 64 x DH tile at (row, head, b) of a (Dh, S, heads, B) map, atom by
+// atom
+template <int NA>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int head,
+                                          int b) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+    hopper::tma_load_4d(dst + a * ATOM, map, bar, 64 * a, row, head, b);
+}
+
+// acc (64 x N) += A B^T, A (64 rows) and B (N rows) K-major tiles of NA
+// atoms ATOM bytes apart, the depth in k16 steps of 32 bytes
+template <int N, int NA>
+__device__ __forceinline__ void products_kk(float* acc, const uint8_t* a,
+                                            const uint8_t* b) {
+#pragma unroll
+  for (int x = 0; x < NA; ++x) {
+    const uint64_t da = hopper::desc_sw128(a + x * ATOM, 16, 1024);
+    const uint64_t db = hopper::desc_sw128(b + x * ATOM, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::wgmma_bf16<N, 0, 0>(acc, da + 2 * k, db + 2 * k);
+  }
+}
+
+// acc (64 x DH) += A B: A (64 x 64) bf16 pairs in registers, a[j] the k16
+// step j; B a 64-row tile read MN-major (its rows are the depth), a k16
+// step 16 rows down, atoms ATOM bytes apart (LBO)
+template <int DH>
+__device__ __forceinline__ void products_rs(float* acc,
+                                            const uint32_t (&a)[4][4],
+                                            const uint8_t* b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    hopper::wgmma_bf16_rs<DH, 1>(
+        acc, a[j], hopper::desc_sw128(b + j * 16 * ROW, ATOM, 1024));
+}
+
+// a 64 x 64 fp32 fragment as the A operand of the next product
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[j][e] = pack_bf16(x[8 * j + 2 * e], x[8 * j + 2 * e + 1]);
+}
+
+// acc * mul rounded to bf16 into a 64 x LDO shared tile (thread t's rows
+// 16 (t / 32) + (t % 32) / 4 and + 8, columns 8 (q / 4) + 2 (t % 4))
+template <int DH>
+__device__ __forceinline__ void frag_to_tile(const float (&acc)[DH / 2],
+                                             float mul, __nv_bfloat16* tile,
+                                             int t) {
+  constexpr int LDO = Cfg<DH>::LDO;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+#pragma unroll
+  for (int q = 0; q < DH / 2; q += 2) {
+    const int i = (q >> 1) & 1;
+    *reinterpret_cast<uint32_t*>(tile + (r + 8 * i) * LDO + 8 * (q >> 2) +
+                                 c) = pack_bf16(acc[q] * mul,
+                                                acc[q + 1] * mul);
+  }
+}
+
+// the first `rows` rows of a shared tile to rows `stride` elements apart,
+// 16-byte stores by one warpgroup
+template <int DH>
+__device__ __forceinline__ void tile_to_global(const __nv_bfloat16* tile,
+                                               __nv_bfloat16* dst,
+                                               long long stride, int rows,
+                                               int t) {
+  constexpr int CH = DH / 8;
+  constexpr int LDO = Cfg<DH>::LDO;
+  for (int i = t; i < T * CH; i += 128) {
+    const int r = i / CH;
+    if (r < rows)
+      *reinterpret_cast<uint4*>(dst + r * stride + (i % CH) * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * LDO + (i % CH) * 8);
+  }
+}
+
+// ------------------------------------------------------- (a) statistics
+
+// The online row max and sum of one key tile's scores s (thread t's rows
+// r0 and r0 + 8, keys k0 + 8 (q / 4) + c + q % 2), in the log2 domain.
+template <bool MASK>
+__device__ __forceinline__ void stats_tile(float (&s)[32], float (&m)[2],
+                                           float (&l)[2], int r0, int k0,
+                                           int c, int S, int causal,
+                                           int window, float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int i = (q >> 1) & 1;
+    float x = s[q] * scale_log2;
+    if (MASK && !attends(r0 + 8 * i, k0 + 8 * (q >> 2) + c + (q & 1), S,
+                         causal, window))
+      x = __int_as_float(0xff800000);          // -inf: exp2f gives 0
+    s[q] = x;
+    mx[i] = fmaxf(mx[i], x);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    l[i] *= exp2f(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int i = (q >> 1) & 1;
+    l[i] += exp2f(s[q] - m[i]);
+  }
+}
+
+// Block (head, query tile from the last, batch), one warpgroup: lse2 (the
+// log-sum-exp of scale log2(e) q.k, log2 units) and D = rowsum(dO * O) of
+// 64 rows, into (B, H, Sp) workspaces; rows past S get 0.
+template <int DH>
+__global__ void __launch_bounds__(128)
+fa_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout,
+                          float* __restrict__ lse, float* __restrict__ delta,
+                          int S, int Sp, int H, int groups, int causal,
+                          int window, float scale_log2) {
+  using K = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ring = qs + K::TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * K::TILE);
+  uint64_t* fixed = full + STAGES;
+  const int t = threadIdx.x;
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
+  const int b = blockIdx.z;
+  int k_lo, k_hi;
+  key_range(q0, min(q0 + T, S) - 1, S, causal, window, k_lo, k_hi);
+  const int t_lo = k_lo / T;
+  const int n_steps = k_hi > k_lo ? (k_hi + T - 1) / T - t_lo : 0;
+
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(fixed, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int n) {
+    const int s = n % STAGES;
+    hopper::mbar_arrive_expect_tx(&full[s], K::TILE);
+    load_tile<K::NA>(ring + s * K::TILE, &tk, &full[s], (t_lo + n) * T,
+                     h / groups, b);
+  };
+  if (t == 0) {
+    hopper::mbar_arrive_expect_tx(fixed, K::TILE);
+    load_tile<K::NA>(qs, &tq, fixed, q0, h, b);
+    for (int n = 0; n < min(STAGES, n_steps); ++n) issue(n);
+  }
+
+  // D while the loads fly: two threads a row, 16-byte reads, a fixed order
+  {
+    const int r = t / 2, half = t % 2;
+    float d = 0.f;
+    if (q0 + r < S) {
+      const long long off =
+          ((static_cast<long long>(b) * S + q0 + r) * H + h) * DH +
+          half * (DH / 2);
+#pragma unroll 4
+      for (int col = 0; col < DH / 2; col += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + col);
+        const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + col);
+        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const auto* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(o2[e]);
+          const float2 g = __bfloat1622float2(g2[e]);
+          d = fmaf(g.x, a.x, d);
+          d = fmaf(g.y, a.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0)
+      delta[(static_cast<long long>(b) * H + h) * Sp + q0 + r] = d;
+  }
+
+  const int r0 = q0 + 16 * (t / 32) + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(fixed, 0);
+  for (int n = 0; n < n_steps; ++n) {
+    const int s = n % STAGES;
+    const int k0 = (t_lo + n) * T;
+    hopper::mbar_wait(&full[s], (n / STAGES) & 1);
+    float sacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+    hopper::fence_regs(sacc);
+    hopper::wgmma_fence();
+    products_kk<T, K::NA>(sacc, qs, ring + s * K::TILE);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    if (all_attend(q0, k0, S, causal, window))
+      stats_tile<false>(sacc, m, l, r0, k0, c, S, causal, window, scale_log2);
+    else
+      stats_tile<true>(sacc, m, l, r0, k0, c, S, causal, window, scale_log2);
+    __syncthreads();                     // every warp is done with stage s
+    if (t == 0 && n + STAGES < n_steps) issue(n + STAGES);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    // a row that attends no key (or lies past S): P is 0 wherever read
+    if (c == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sp + r0 + 8 * i] =
+          l[i] > 0.f ? m[i] + log2f(l[i]) : 0.f;
+  }
+}
+
+// ------------------------------------------------------------ (b) dK, dV
+
+struct KeyBlock {
+  int S, KV, causal, window;
+  float scale, scale_log2;
+  int b, kvh, k0, qt_lo, nq, n_steps;
+};
+
+// One warpgroup's part of (b).  ROLE 2 (Dh 64, 128): the whole step, dV
+// and dK; at Dh 256 ROLE 0 (S^T, P^T, dV += P^T dO; hands P^T over in
+// shared memory) and ROLE 1 (dP^T, dS^T, dK += dS^T Q).
+template <int DH, int ROLE, typename Issue>
+__device__ __forceinline__ void dkdv_role(const KeyBlock& g, Issue issue,
+                                          const uint8_t* ks,
+                                          const uint8_t* vs, uint8_t* ring,
+                                          float* pbuf, uint64_t* full, int t,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv) {
+  using K = Cfg<DH>;
+  constexpr bool DO_S = ROLE != 1, DO_DP = ROLE != 0;
+  constexpr int NT = K::THREADS_B;
+  float dva[DO_S ? DH / 2 : 1], dka[DO_DP ? DH / 2 : 1];
+  if constexpr (DO_S) {
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dva[i] = 0.f;
+  }
+  if constexpr (DO_DP) {
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dka[i] = 0.f;
+  }
+  // this thread's keys kr and kr + 8, queries 8 (q / 4) + c + q % 2
+  const int kr = g.k0 + 16 * (t / 32) + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+  for (int n = 0; n < g.n_steps; ++n) {
+    const int s = n % STAGES;
+    const int q0 = (g.qt_lo + n % g.nq) * T;
+    hopper::mbar_wait(&full[s], (n / STAGES) & 1);
+    const uint8_t* qt = ring + s * K::STAGE_B;
+    const uint8_t* dot = qt + K::TILE;
+    const float* Ls = reinterpret_cast<const float*>(qt + 2 * K::TILE);
+    const float* Ds = Ls + T;
+    float sacc[DO_S ? 32 : 1], dpacc[DO_DP ? 32 : 1];
+    if constexpr (DO_S) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+      hopper::fence_regs(sacc);
+    }
+    if constexpr (DO_DP) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dpacc[i] = 0.f;
+      hopper::fence_regs(dpacc);
+    }
+    hopper::wgmma_fence();
+    if constexpr (DO_S) products_kk<T, K::NA>(sacc, ks, qt);     // S^T
+    if constexpr (DO_DP) products_kk<T, K::NA>(dpacc, vs, dot);  // dP^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    if constexpr (DO_S) hopper::fence_regs(sacc);
+    if constexpr (DO_DP) hopper::fence_regs(dpacc);
+    const bool whole = all_attend(q0, g.k0, g.S, g.causal, g.window);
+    if constexpr (DO_S) {
+      // P^T = exp2(S^T scale log2(e) - lse2[query]), masked to exactly 0
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const int col = 8 * (q >> 2) + c + (q & 1);
+        const float p = exp2f(fmaf(sacc[q], g.scale_log2, -Ls[col]));
+        sacc[q] = whole || attends(q0 + col, kr + 8 * ((q >> 1) & 1), g.S,
+                                   g.causal, g.window)
+                      ? p : 0.f;
+      }
+      if constexpr (ROLE == 0) {
+#pragma unroll
+        for (int q = 0; q < 32; ++q) pbuf[q * 128 + t] = sacc[q];
+        hopper::named_bar_arrive(1, NT);
+      }
+    }
+    if constexpr (DO_DP) {
+      if constexpr (ROLE == 1) hopper::named_bar_sync(1, NT);
+      // dS^T = P^T (dP^T - D[query])
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        float p;
+        if constexpr (ROLE == 1)
+          p = pbuf[q * 128 + t];
+        else
+          p = sacc[q];
+        dpacc[q] = p * (dpacc[q] - Ds[8 * (q >> 2) + c + (q & 1)]);
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    if constexpr (DO_S) {
+      pack_a(sacc, pa);
+      hopper::fence_regs(dva);
+    }
+    if constexpr (DO_DP) {
+      pack_a(dpacc, da);
+      hopper::fence_regs(dka);
+    }
+    hopper::wgmma_fence();
+    if constexpr (DO_S) products_rs<DH>(dva, pa, dot);           // dV
+    if constexpr (DO_DP) products_rs<DH>(dka, da, qt);           // dK
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    if constexpr (DO_S) hopper::fence_regs(dva);
+    if constexpr (DO_DP) hopper::fence_regs(dka);
+    hopper::named_bar_sync(2, NT);       // every warp is done with stage s
+    if (ROLE != 1 && t == 0 && n + STAGES < g.n_steps) issue(n + STAGES);
+  }
+  // epilogue: dV, dK * scale rounded to bf16 in the ring, then rows < S
+  __nv_bfloat16* tv = reinterpret_cast<__nv_bfloat16*>(ring);
+  __nv_bfloat16* tk = reinterpret_cast<__nv_bfloat16*>(ring + K::EPI);
+  if constexpr (DO_S) frag_to_tile<DH>(dva, 1.f, tv, t);
+  if constexpr (DO_DP) frag_to_tile<DH>(dka, g.scale, tk, t);
+  hopper::named_bar_sync(2, NT);
+  const long long at = ((static_cast<long long>(g.b) * g.S + g.k0) * g.KV +
+                        g.kvh) * DH;
+  const int rows = min(T, g.S - g.k0);
+  if constexpr (DO_S)
+    tile_to_global<DH>(tv, dv + at, static_cast<long long>(g.KV) * DH, rows,
+                       t);
+  if constexpr (DO_DP)
+    tile_to_global<DH>(tk, dk + at, static_cast<long long>(g.KV) * DH, rows,
+                       t);
+}
+
+// Block (KV head, key tile, batch): the tile's K and V loaded once, then
+// the group's query heads, for each the query tiles the masks allow.
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::THREADS_B)
+fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int Sp, int H,
+                         int KV, int causal, int window, float scale,
+                         float scale_log2) {
+  using K = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + K::TILE;
+  uint8_t* ring = vs + K::TILE;
+  float* pbuf = reinterpret_cast<float*>(ring + STAGES * K::STAGE_B);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(pbuf) + K::PBUF);
+  uint64_t* fixed = full + STAGES;
+  KeyBlock g;
+  g.S = S;
+  g.KV = KV;
+  g.causal = causal;
+  g.window = window;
+  g.scale = scale;
+  g.scale_log2 = scale_log2;
+  g.kvh = blockIdx.x;
+  g.k0 = blockIdx.y * T;
+  g.b = blockIdx.z;
+  const int groups = H / KV;
+  int q_lo, q_hi;
+  query_range(g.k0, min(g.k0 + T, S) - 1, S, causal, window, q_lo, q_hi);
+  g.qt_lo = q_lo / T;
+  g.nq = q_hi > q_lo ? (q_hi + T - 1) / T - g.qt_lo : 0;
+  g.n_steps = groups * g.nq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(fixed, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int n) {
+    const int s = n % STAGES;
+    const int h = g.kvh * groups + n / g.nq;
+    const int q0 = (g.qt_lo + n % g.nq) * T;
+    uint8_t* st = ring + s * K::STAGE_B;
+    const long long at = (static_cast<long long>(g.b) * H + h) * Sp + q0;
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * K::TILE + 2 * T * 4);
+    load_tile<K::NA>(st, &tq, &full[s], q0, h, g.b);
+    load_tile<K::NA>(st + K::TILE, &tdo, &full[s], q0, h, g.b);
+    hopper::bulk_load(st + 2 * K::TILE, lse + at, T * 4, &full[s]);
+    hopper::bulk_load(st + 2 * K::TILE + T * 4, delta + at, T * 4, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(fixed, 2 * K::TILE);
+    load_tile<K::NA>(ks, &tk, fixed, g.k0, g.kvh, g.b);
+    load_tile<K::NA>(vs, &tv, fixed, g.k0, g.kvh, g.b);
+    for (int n = 0; n < min(STAGES, g.n_steps); ++n) issue(n);
+  }
+  hopper::mbar_wait(fixed, 0);
+  const int t = threadIdx.x % 128;
+  if constexpr (K::SPLIT) {
+    if (threadIdx.x < 128)
+      dkdv_role<DH, 0>(g, issue, ks, vs, ring, pbuf, full, t, dk, dv);
+    else
+      dkdv_role<DH, 1>(g, issue, ks, vs, ring, pbuf, full, t, dk, dv);
+  } else {
+    dkdv_role<DH, 2>(g, issue, ks, vs, ring, pbuf, full, t, dk, dv);
+  }
+}
+
+// ---------------------------------------------------------------- (c) dQ
+
+// Block (head, query tile from the last, batch), one warpgroup: Q, dO,
+// lse2 and D loaded once, then the key tiles the rows attend, in order.
+template <int DH>
+__global__ void __launch_bounds__(128)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, int Sp, int H,
+                       int groups, int causal, int window, float scale,
+                       float scale_log2) {
+  using K = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + K::TILE;
+  float* lsd = reinterpret_cast<float*>(dos + K::TILE);   // lse2[64], D[64]
+  uint8_t* ring = dos + K::TILE + 1024;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * K::STAGE_C);
+  uint64_t* fixed = full + STAGES;
+  const int t = threadIdx.x;
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
+  const int b = blockIdx.z;
+  const int kvh = h / groups;
+  int k_lo, k_hi;
+  key_range(q0, min(q0 + T, S) - 1, S, causal, window, k_lo, k_hi);
+  const int t_lo = k_lo / T;
+  const int n_steps = k_hi > k_lo ? (k_hi + T - 1) / T - t_lo : 0;
+
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(fixed, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int n) {
+    const int s = n % STAGES;
+    uint8_t* st = ring + s * K::STAGE_C;
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * K::TILE);
+    load_tile<K::NA>(st, &tk, &full[s], (t_lo + n) * T, kvh, b);
+    load_tile<K::NA>(st + K::TILE, &tv, &full[s], (t_lo + n) * T, kvh, b);
+  };
+  if (t == 0) {
+    const long long at = (static_cast<long long>(b) * H + h) * Sp + q0;
+    hopper::mbar_arrive_expect_tx(fixed, 2 * K::TILE + 2 * T * 4);
+    load_tile<K::NA>(qs, &tq, fixed, q0, h, b);
+    load_tile<K::NA>(dos, &tdo, fixed, q0, h, b);
+    hopper::bulk_load(lsd, lse + at, T * 4, fixed);
+    hopper::bulk_load(lsd + T, delta + at, T * 4, fixed);
+    for (int n = 0; n < min(STAGES, n_steps); ++n) issue(n);
+  }
+  // this thread's rows r and r + 8 of the tile, keys 8 (q / 4) + c + q % 2
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+  hopper::mbar_wait(fixed, 0);
+  const float l2[2] = {lsd[r], lsd[r + 8]};
+  const float dd[2] = {lsd[T + r], lsd[T + r + 8]};
+  float dqa[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dqa[i] = 0.f;
+  for (int n = 0; n < n_steps; ++n) {
+    const int s = n % STAGES;
+    const int k0 = (t_lo + n) * T;
+    hopper::mbar_wait(&full[s], (n / STAGES) & 1);
+    const uint8_t* kt = ring + s * K::STAGE_C;
+    float sacc[32], dpacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sacc[i] = 0.f;
+      dpacc[i] = 0.f;
+    }
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dpacc);
+    hopper::wgmma_fence();
+    products_kk<T, K::NA>(sacc, qs, kt);                // S = Q K^T
+    products_kk<T, K::NA>(dpacc, dos, kt + K::TILE);    // dP = dO V^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dpacc);
+    const bool whole = all_attend(q0, k0, S, causal, window);
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int i = (q >> 1) & 1;
+      float p = exp2f(fmaf(sacc[q], scale_log2, -l2[i]));
+      if (!whole && !attends(q0 + r + 8 * i, k0 + 8 * (q >> 2) + c + (q & 1),
+                             S, causal, window))
+        p = 0.f;
+      dpacc[q] = p * (dpacc[q] - dd[i]);                // dS
+    }
+    uint32_t da[4][4];
+    pack_a(dpacc, da);
+    hopper::fence_regs(dqa);
+    hopper::wgmma_fence();
+    products_rs<DH>(dqa, da, kt);                       // dQ += dS K
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    __syncthreads();                     // every warp is done with stage s
+    if (t == 0 && n + STAGES < n_steps) issue(n + STAGES);
+  }
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+  frag_to_tile<DH>(dqa, scale, tile, t);
+  __syncthreads();
+  tile_to_global<DH>(
+      tile, dq + ((static_cast<long long>(b) * S + q0) * H + h) * DH,
+      static_cast<long long>(H) * DH, min(T, S - q0), t);
+}
+
+// ---------------------------------------------------------------- launch
+
+// the shared memory above 48 KB, opted into once per device
+template <typename KernelFn>
+int opt_in(KernelFn kernel, int smem, bool (&ready)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  return 0;
+}
+
+template <int DH>
+int launch_dh(int stage, const void* q, const void* k, const void* v,
+              const void* o, const void* dout, float* lse, float* delta,
+              void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+              int causal, int window, float scale, cudaStream_t st) {
+  using K = Cfg<DH>;
+  static bool ready[3][MAX_DEVICES] = {};
+  const int tiles = (S + T - 1) / T;
+  const int Sp = tiles * T;              // the workspaces' row length
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * LOG2E;
+  // (Dh, S, heads, B) maps of the contiguous tensors, 64 x 64 boxes;
+  // encoded on the host at every call, passed by value
+  CUtensorMap tq, tk, tv, tdo;
+  const long long qs = static_cast<long long>(H) * DH;
+  const long long kvs = static_cast<long long>(KV) * DH;
+  int rc = hopper::encode_bf16_4d_sw128(&tq, q, DH, S, H, B, qs, DH, S * qs,
+                                        64, T);
+  if (rc == 0)
+    rc = hopper::encode_bf16_4d_sw128(&tk, k, DH, S, KV, B, kvs, DH,
+                                      S * kvs, 64, T);
+  if (rc == 0 && stage != STATS)
+    rc = hopper::encode_bf16_4d_sw128(&tv, v, DH, S, KV, B, kvs, DH,
+                                      S * kvs, 64, T);
+  if (rc == 0 && stage != STATS)
+    rc = hopper::encode_bf16_4d_sw128(&tdo, dout, DH, S, H, B, qs, DH,
+                                      S * qs, 64, T);
+  if (rc != 0) return rc;
+  const auto* ot = static_cast<const __nv_bfloat16*>(o);
+  const auto* dt = static_cast<const __nv_bfloat16*>(dout);
+  if (stage == STATS) {
+    rc = opt_in(fa_bwd_stats_wgmma_kernel<DH>, K::SMEM_A, ready[0]);
+    if (rc != 0) return rc;
+    fa_bwd_stats_wgmma_kernel<DH><<<dim3(H, tiles, B), 128, K::SMEM_A, st>>>(
+        tq, tk, ot, dt, lse, delta, S, Sp, H, H / KV, causal, window,
+        scale_log2);
+  } else if (stage == DKDV) {
+    rc = opt_in(fa_bwd_dkdv_wgmma_kernel<DH>, K::SMEM_B, ready[1]);
+    if (rc != 0) return rc;
+    fa_bwd_dkdv_wgmma_kernel<DH>
+        <<<dim3(KV, tiles, B), K::THREADS_B, K::SMEM_B, st>>>(
+            tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+            static_cast<__nv_bfloat16*>(dv), S, Sp, H, KV, causal, window,
+            scale, scale_log2);
+  } else if (stage == DQ) {
+    rc = opt_in(fa_bwd_dq_wgmma_kernel<DH>, K::SMEM_C, ready[2]);
+    if (rc != 0) return rc;
+    fa_bwd_dq_wgmma_kernel<DH><<<dim3(H, tiles, B), 128, K::SMEM_C, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, Sp,
+        H, H / KV, causal, window, scale, scale_log2);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int stage, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, void* lse_, void* delta_,
+           void* dq, void* dk, void* dv, int B, int S, int H, int KV, int Dh,
+           int causal, int window, float scale, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* lse = static_cast<float*>(lse_);
+  float* delta = static_cast<float*>(delta_);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch_dh<64>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
+    case 128: return launch_dh<128>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
+    case 256: return launch_dh<256>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace wg
 
 }  // namespace
 
 // C entry points, bound with ctypes.  q, o, dout and dq are contiguous
 // (B,S,H,Dh); k, v, dk and dv contiguous (B,S,KV,Dh); lse and delta fp32
-// (B,H,S) workspaces.  `stage` is 0 (stats: writes lse and delta), 1 (dK,
+// (B,H,S) workspaces, (B,H,Sp) with Sp = S rounded up to 64 on the wgmma
+// route (the third entry: bf16, Dh 64, 128 or 256, every base 16-byte
+// aligned).  `stage` is 0 (stats: writes lse and delta), 1 (dK,
 // dV: reads lse and delta) or 2 (dQ: reads lse and delta); pointers a
 // stage does not use may be null.  window < 0 means no window; causal is
-// 0 or 1; Dh is 16, 32, 64, 80, 128 or 256.  Each returns
+// 0 or 1; Dh is 16, 32, 64, 80, 128 or 256 (bf16 on the SIMT entry: 16,
+// 32 or 80; on the wgmma entry: 64, 128 or 256).  Each returns
 // cudaGetLastError() after its launch, or the error that kept it from
 // launching.
 extern "C" int repro_flash_attention_bwd_f32(
@@ -567,4 +1324,13 @@ extern "C" int repro_flash_attention_bwd_bf16(
   return launch<__nv_bfloat16>(stage, q, k, v, o, dout, lse, delta, dq, dk,
                                dv, B, S, H, KV, Dh, causal, window, scale,
                                stream);
+}
+
+extern "C" int repro_flash_attention_bwd_bf16_wgmma(
+    int stage, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
+    int B, int S, int H, int KV, int Dh, int causal, int window, float scale,
+    void* stream) {
+  return wg::launch(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                    KV, Dh, causal, window, scale, stream);
 }

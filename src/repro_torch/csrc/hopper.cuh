@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's kernels: thin inline-PTX
-// wrappers for cp.async copies, mbarriers, 3-D and 4-D TMA tensor loads, the
-// wgmma shared-memory descriptor and instructions (A from shared memory or
-// from registers), and setmaxnreg, plus the host-side encoders of TMA
-// tensor maps.  The encodings follow the PTX ISA
+// wrappers for cp.async copies, mbarriers, named barriers, 1-D bulk copies,
+// 3-D and 4-D TMA tensor loads, the wgmma shared-memory descriptor and
+// instructions (A from shared memory or from registers), and setmaxnreg,
+// plus the host-side encoders of TMA tensor maps.  The encodings follow the
+// PTX ISA
 // (as CUTLASS's cute/arch/mma_sm90_desc.hpp, mma_sm90_gmma.hpp and
 // copy_sm90_tma.hpp spell them out).
 //
@@ -99,7 +100,25 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// arrives at named barrier `id` (1-15) without waiting: with a bar.sync
+// of the same id and count it hands shared-memory writes to the waiters
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------------------------------------------ TMA
+
+// Copies `bytes` (a multiple of 16) contiguous bytes from `src` to shared
+// memory at `dst`, both 16-byte aligned; completion is reported to `bar`
+// as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // Copies the box at coordinates (c0 innermost, c1, c2) of `map` into
 // shared memory at `dst`; completion is reported to `bar` as transaction

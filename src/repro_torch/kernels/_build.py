@@ -76,6 +76,9 @@ SIGNATURES = {
     "repro_flash_attention_bwd_bf16": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                        ctypes.c_float, _P],
+    "repro_flash_attention_bwd_bf16_wgmma": [_I, _P, _P, _P, _P, _P, _P,
+                                             _P, _P, _P, _P, _I, _I, _I, _I,
+                                             _I, _I, _I, ctypes.c_float, _P],
     # r, k, v, w, u (fp32), y, S, B, T, H, D, columns per block, blocks
     # a head, threads a block, 12 strides, 16-byte copies, stream
     "repro_wkv6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

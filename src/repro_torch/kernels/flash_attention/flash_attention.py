@@ -14,9 +14,11 @@ CPU tensors run the plain versions of
 Where grad is enabled and q, k or v requires grad, a CUDA call goes
 through a ``torch.autograd.Function``: its forward launches the same
 kernel on the same route, and its backward :func:`flash_attention_bwd`,
-the three kernels of ``csrc/flash_attention_bwd.cu`` (row statistics,
-dK/dV, dQ).  Every other call, serving's included, launches exactly as
-before.
+three launches of ``csrc/flash_attention_bwd.cu`` (row statistics,
+dK/dV, dQ) on one of its two routes, as :func:`route_bwd` picks: the
+tensor-core kernels (``"wgmma"``, bf16 with Dh 64, 128 or 256) or the
+SIMT kernels (``"simt"``, fp32 and the other head widths).  Every other
+call, serving's included, launches exactly as before.
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("simt", torch.bfloat16): "repro_flash_attention_bf16",
           ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
 HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dh
-WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernel's Dh
+WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernels' Dh
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # the backward kernels' Dh
-_BWD_ENTRY = {torch.float32: "repro_flash_attention_bwd_f32",
-              torch.bfloat16: "repro_flash_attention_bwd_bf16"}
+_BWD_ENTRY = {("simt", torch.float32): "repro_flash_attention_bwd_f32",
+              ("simt", torch.bfloat16): "repro_flash_attention_bwd_bf16",
+              ("wgmma", torch.bfloat16):
+                  "repro_flash_attention_bwd_bf16_wgmma"}
+_BWD_TILE = 64             # the wgmma route's tile rows: lse/D row padding
 BWD_STAGES = ("stats", "dkdv", "dq")            # launched in this order
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit
 # beyond which the exact O(S^2) plain version gives way to the chunked one
@@ -48,6 +53,7 @@ CHUNKED_THRESHOLD = 1024
 launches = 0               # kernel launches since the last reset
 routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
 bwd_launches = 0           # backward kernel launches (three a call)
+bwd_routes = {"wgmma": 0, "simt": 0}  # the same launches, by route
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -82,6 +88,19 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16
             and q.shape[-1] in WGMMA_HEAD_DIMS
             and all(_build.tma_readable(t) for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
+def route_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernels that a CUDA call of :func:`flash_attention_bwd` on these
+    operands launches: ``"wgmma"`` for bf16 q/k/v with Dh 64, 128 or 256,
+    ``"simt"`` for everything else (fp32, whose contract allows no TF32,
+    and Dh 16, 32 and 80).  The wrapper hands the kernels contiguous,
+    16-byte aligned copies, so strides never matter.  Pure: reads only
+    dtypes and shapes, so it answers for meta and CPU tensors too."""
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in WGMMA_HEAD_DIMS):
         return "wgmma"
     return "simt"
 
@@ -162,8 +181,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``do``, given the forward's output ``out``; each in its input's shape
     and dtype.  CUDA tensors launch ``csrc/flash_attention_bwd.cu``'s three
-    kernels (Dh in :data:`BWD_HEAD_DIMS`), two calls giving the same bits;
-    CPU tensors run
+    kernels (Dh in :data:`BWD_HEAD_DIMS`) on :func:`route_bwd`'s route,
+    two calls giving the same bits; CPU tensors run
     :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`
     (which recomputes the output and so ignores ``out``)."""
     _check(q, k, v)
@@ -184,25 +203,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {Dh}")
     if max(H, B) > _MAX_GRID:
         raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
-    q, k, v, out = (t.contiguous() for t in (q, k, v, out))
-    do = do.to(q.dtype).contiguous()
+    r = route_bwd(q, k, v)
+    # contiguous and 16-byte aligned: what the wgmma route's TMA maps read
+    q, k, v, out, do = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                        else t.clone(memory_format=torch.contiguous_format)
+                        for t in (q, k, v, out, do.to(q.dtype)))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the row statistics: (B, H, S), rows padded to whole 64-row tiles on
+    # the wgmma route (its kernels copy a tile's 64 values in one piece)
+    rows = S if r == "simt" else -(-S // _BWD_TILE) * _BWD_TILE
+    lse = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     lib = _build.library()
-    entry = getattr(lib, _BWD_ENTRY[q.dtype])
+    entry = getattr(lib, _BWD_ENTRY[r, q.dtype])
     win = -1 if window is None else min(int(window), S)
     global bwd_launches
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for stage, name in enumerate(BWD_STAGES):
             bwd_launches += 1
+            bwd_routes[r] += 1
             rc = entry(stage, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), B, S, H, KV, Dh, int(causal), win,
                        1.0 / math.sqrt(Dh), stream)
-            _build.check(rc, f"flash_attention backward ({name})")
+            _build.check(rc, f"flash_attention backward ({r}, {name})")
     return dq, dk, dv

@@ -3,11 +3,14 @@ against the Pallas kernel in interpret mode over the sweep of
 tests/test_kernels.py, the chunked form against the exact one, and the
 shapes the Pallas kernel cannot take (ragged S, Dh = 80) against the JAX
 package's exact reference.  Then the route a CUDA call would take, and a
-model of the tensor-core kernel's rounding held to the same references.
-Inputs are made with numpy from a seed and given to both packages."""
+model of the tensor-core kernel's rounding held to the same references;
+the same for the backward (its route, and a model of the tensor-core
+backward's roundings against ``jax.vjp`` of the JAX reference).  Inputs
+are made with numpy from a seed and given to both packages."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -164,6 +167,116 @@ def test_route_takes_simt_for_the_rest(what):
     else:
         k = _bf16(1, 64, 2, 64, offset=4)     # 8 bytes: not 16-aligned
     assert tfa.route(q, k, k) == "simt"
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_route_bwd_takes_wgmma_for_bf16(Dh, device):
+    """bf16 Dh 64, 128 and 256 backward on the tensor cores, whatever the
+    strides and offsets (the wrapper hands the kernels aligned contiguous
+    copies): internlm2-1.8b's training shape, GQA 8, a head slice of a
+    fused projection, an odd element offset."""
+    def bf16(*shape, offset=0):
+        n = math.prod(shape)
+        return torch.zeros(n + offset, dtype=torch.bfloat16,
+                           device=device)[offset:].view(shape)
+    q, k = bf16(4, 1024, 16, Dh), bf16(4, 1024, 8, Dh)
+    assert tfa.route_bwd(q, k, k) == "wgmma"
+    assert tfa.route_bwd(bf16(1, 40, 8, Dh), bf16(1, 40, 1, Dh),
+                         bf16(1, 40, 1, Dh)) == "wgmma"
+    qkv = bf16(2, 100, 12, Dh)
+    assert tfa.route_bwd(qkv[:, :, :8], qkv[:, :, 8:10],
+                         qkv[:, :, 10:]) == "wgmma"
+    assert tfa.route_bwd(bf16(1, 64, 4, Dh, offset=1), bf16(1, 64, 2, Dh),
+                         bf16(1, 64, 2, Dh)) == "wgmma"
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("what", ["fp32", "Dh 16", "Dh 32", "Dh 80", "Dh 8",
+                                  "Dh 12", "Dh 96", "fp32 v"])
+def test_route_bwd_takes_simt_for_the_rest(what, device):
+    """fp32 (no TF32 in its contract) and every head width the tensor-core
+    backward does not compile stay on the SIMT kernels."""
+    dh = int(what.split()[1]) if what.startswith("Dh") else 64
+    q, k, v = (torch.zeros(1, 64, heads, dh, dtype=torch.bfloat16,
+                           device=device) for heads in (4, 2, 2))
+    if what == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif what == "fp32 v":
+        v = v.float()
+    assert tfa.route_bwd(q, k, v) == "simt"
+
+
+def _wgmma_bwd_model(q, k, v, do, causal, window):
+    """The tensor-core backward's roundings, in fp32 on the CPU: D from
+    the forward's bf16 output, P and dS rounded to bf16 before dV = P^T dO,
+    dK = scale dS^T Q and dQ = scale dS K (the kernels' register-A
+    operands), the gradients rounded to bf16.  Not the kernels' order of
+    sums."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    scale = 1 / math.sqrt(Dh)
+    qh = q.float().reshape(B, S, KV, H // KV, Dh)
+    doh = do.float().reshape(B, S, KV, H // KV, Dh)
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    pos = torch.arange(S)
+    mask = attention_mask(pos, pos, causal, window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) * scale
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    d = (do.float() * out.float()).sum(-1)                  # (B, S, H)
+    d = d.reshape(B, S, KV, H // KV).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqkgd,bskd->bkgqs", doh, v.float())
+    ds = (p * (dp - d)).bfloat16().float()
+    p = p.bfloat16().float()
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, doh)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qh) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    return (dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# B, S, H, KV, Dh, causal, window: every head width of the tensor-core
+# backward, ragged S (no multiple of its 64-row tile), S below one tile,
+# GQA 1, 2 and 8, windows causal and bidirectional, and window 0
+WGMMA_BWD = [
+    (1, 100, 4, 2, 64, True, None),
+    (1, 40, 8, 1, 128, True, None),
+    (1, 130, 4, 2, 128, False, 50),
+    (1, 97, 2, 1, 256, True, 30),
+    (1, 70, 2, 2, 64, True, 0),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win", WGMMA_BWD)
+def test_wgmma_bwd_rounding_within_tolerance(B, S, H, KV, Dh, causal, win):
+    """P and dS in bf16 (the tensor-core backward's register operands)
+    stay within the backward kernels' bf16 tolerance (2e-2 of the largest
+    |gradient|) of jax.vjp of the JAX package's exact reference in fp32.
+    Window 0 gives gradients of exactly 0, as the port's plain backward
+    does (its forward, like the kernels, outputs 0 for a row that attends
+    no key; the JAX reference's softmax spreads such a row evenly)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(6, B, S, H, KV, Dh, "bfloat16")
+    rng = np.random.default_rng(7)
+    tdo = torch.from_numpy(rng.normal(size=(B, S, H, Dh)).astype(
+        np.float32)).bfloat16()
+    f32 = [jnp.asarray(x, jnp.float32) for x in (jq, jk, jv)]
+    _, vjp = jax.vjp(lambda q, k, v: jax_ref(q, k, v, causal=causal,
+                                             window=win), *f32)
+    want = vjp(jnp.asarray(tdo.float().numpy()))
+    got = _wgmma_bwd_model(tq, tk, tv, tdo, causal, win)
+    if win == 0:
+        want = tfa.attention_bwd_ref(tq, tk, tv, tdo, causal, win)
+        assert all(torch.count_nonzero(w) == 0 for w in want)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        if win == 0:
+            assert torch.count_nonzero(a) == 0, name
+            continue
+        b = np.asarray(b)
+        err = np.abs(_np(a) - b).max() / np.abs(b).max()
+        assert err <= 2e-2, f"d{name}: {err}"
 
 
 def _wgmma_model(q, k, v, causal, window):

@@ -920,63 +920,85 @@ def test_rmsnorm_autograd_on_card(cuda, dtype):
     assert rms.bwd_launches == b + 2
 
 
-# B, S, H, KV, Dh, causal, window, dtype: internlm2-1.8b's training shape,
-# then every instance the backward compiles (Dh 16, 32, 64, 80, 128, 256
-# in both dtypes), GQA 1-8, windows, bidirectional, ragged S (not a
-# multiple of the 64- or 32-row tile)
+# B, S, H, KV, Dh, causal, window, dtype, route: internlm2-1.8b's training
+# shape, then every instance the backward compiles (Dh 16, 32, 64, 80,
+# 128, 256 in both dtypes; bf16 Dh 64, 128 and 256 on the tensor-core
+# route), GQA 1-8, windows, bidirectional, ragged S (not a multiple of the
+# 64- or 32-row tile), S below one tile, and window 0 (no row attends a
+# key: every gradient exactly 0)
 FA_BWD_CASES = [
-    (4, 1024, 16, 8, 128, True, None, "bfloat16"),
-    (1, 256, 16, 8, 128, True, None, "float32"),
-    (2, 333, 4, 2, 128, True, 100, "float32"),
-    (1, 300, 4, 1, 64, True, None, "bfloat16"),
-    (1, 129, 4, 2, 64, True, None, "float32"),
-    (1, 130, 4, 2, 256, True, 50, "bfloat16"),
-    (1, 97, 2, 1, 256, True, None, "float32"),
-    (1, 100, 2, 2, 80, False, None, "float32"),
-    (1, 70, 2, 2, 80, True, None, "bfloat16"),
-    (2, 70, 4, 4, 16, False, 20, "float32"),
-    (1, 50, 2, 1, 16, True, None, "bfloat16"),
-    (1, 96, 8, 1, 32, True, None, "bfloat16"),
-    (1, 80, 4, 2, 32, True, 30, "float32"),
-    (1, 65, 2, 2, 64, False, None, "bfloat16"),
+    (4, 1024, 16, 8, 128, True, None, "bfloat16", "wgmma"),
+    (1, 256, 16, 8, 128, True, None, "float32", "simt"),
+    (2, 333, 4, 2, 128, True, 100, "float32", "simt"),
+    (1, 300, 4, 1, 64, True, None, "bfloat16", "wgmma"),
+    (1, 129, 4, 2, 64, True, None, "float32", "simt"),
+    (1, 130, 4, 2, 256, True, 50, "bfloat16", "wgmma"),
+    (1, 97, 2, 1, 256, True, None, "float32", "simt"),
+    (1, 100, 2, 2, 80, False, None, "float32", "simt"),
+    (1, 70, 2, 2, 80, True, None, "bfloat16", "simt"),
+    (2, 70, 4, 4, 16, False, 20, "float32", "simt"),
+    (1, 50, 2, 1, 16, True, None, "bfloat16", "simt"),
+    (1, 96, 8, 1, 32, True, None, "bfloat16", "simt"),
+    (1, 80, 4, 2, 32, True, 30, "float32", "simt"),
+    (1, 65, 2, 2, 64, False, None, "bfloat16", "wgmma"),
+    (2, 333, 4, 2, 128, True, 100, "bfloat16", "wgmma"),
+    (1, 333, 16, 2, 64, True, 100, "bfloat16", "wgmma"),
+    (1, 130, 4, 2, 128, False, 50, "bfloat16", "wgmma"),
+    (1, 40, 8, 1, 128, True, None, "bfloat16", "wgmma"),
+    (1, 33, 4, 2, 64, False, None, "bfloat16", "wgmma"),
+    (1, 97, 2, 1, 256, True, None, "bfloat16", "wgmma"),
+    (2, 190, 8, 1, 256, False, 70, "bfloat16", "wgmma"),
+    (1, 50, 4, 2, 256, True, None, "bfloat16", "wgmma"),
+    (1, 200, 4, 4, 128, True, 0, "bfloat16", "wgmma"),
+    (1, 100, 2, 1, 64, False, 0, "bfloat16", "wgmma"),
+    (1, 70, 2, 2, 256, True, 0, "bfloat16", "wgmma"),
+    (1, 70, 4, 2, 128, True, 0, "float32", "simt"),
 ]
 
 
-@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win,dtype", FA_BWD_CASES)
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,win,dtype,route", FA_BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, B, S, H, KV, Dh,
-                                                  causal, win, dtype):
+                                                  causal, win, dtype, route):
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     q = _randn((B, S, H, Dh), dtype, cuda, 40)
     k = _randn((B, S, KV, Dh), dtype, cuda, 41)
     v = _randn((B, S, KV, Dh), dtype, cuda, 42)
     do = _randn((B, S, H, Dh), dtype, cuda, 43)
     out = fa.flash_attention(q, k, v, causal=causal, window=win)
-    before = fa.bwd_launches
+    assert fa.route_bwd(q, k, v) == route
+    before, by_route = fa.bwd_launches, dict(fa.bwd_routes)
     got = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
     assert fa.bwd_launches == before + 3
+    assert {r: fa.bwd_routes[r] - n for r, n in by_route.items()} == {
+        r: 3 if r == route else 0 for r in by_route}
     want = attention_bwd_ref(q, k, v, do, causal, win)
     for name, a, b in zip("qkv", got, want):
         err = _rel_err(a, b)
         assert err <= BWD_TOL[dtype], f"d{name}: {err}"
+        if win == 0:
+            assert torch.count_nonzero(a) == 0, f"d{name} with window 0"
     again = fa.flash_attention_bwd(q, k, v, out, do, causal, win)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_flash_attention_autograd_on_card(cuda):
     """Under grad: the forward kernel (wgmma route for bf16 Dh 128) as an
-    autograd node whose backward is the three kernels; no_grad and
-    operands that require nothing launch as serving does."""
+    autograd node whose backward is the three kernels (wgmma route too);
+    no_grad and operands that require nothing launch as serving does.
+    Last, internlm2-1.8b's training shape: three wgmma backward
+    launches."""
     q0 = _randn((2, 256, 8, 128), "bfloat16", cuda, 44)
     k0 = _randn((2, 256, 2, 128), "bfloat16", cuda, 45)
     v0 = _randn((2, 256, 2, 128), "bfloat16", cuda, 46)
     do = _randn((2, 256, 8, 128), "bfloat16", cuda, 47)
     q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
     f, b, wg = fa.launches, fa.bwd_launches, fa.routes["wgmma"]
+    bwg = fa.bwd_routes["wgmma"]
     out = fa.flash_attention(q, k, v)
     assert out.grad_fn is not None
     assert (fa.launches, fa.routes["wgmma"]) == (f + 1, wg + 1)
     grads = torch.autograd.grad(out, (q, k, v), do)
-    assert fa.bwd_launches == b + 3
+    assert fa.bwd_launches == b + 3 and fa.bwd_routes["wgmma"] == bwg + 3
     for a, w in zip(grads, fa.flash_attention_bwd(q0, k0, v0, out.detach(),
                                                   do)):
         assert torch.equal(a, w)
@@ -984,6 +1006,15 @@ def test_flash_attention_autograd_on_card(cuda):
         assert fa.flash_attention(q, k, v).grad_fn is None
     assert fa.flash_attention(q0, k0, v0).grad_fn is None
     assert fa.bwd_launches == b + 6
+    q, k, v = (_randn(shape, "bfloat16", cuda, 48 + i).requires_grad_(True)
+               for i, shape in enumerate([(4, 1024, 16, 128),
+                                          (4, 1024, 8, 128),
+                                          (4, 1024, 8, 128)]))
+    routes = dict(fa.bwd_routes)
+    out = fa.flash_attention(q, k, v)
+    torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert {r: fa.bwd_routes[r] - n for r, n in routes.items()} == {
+        "wgmma": 3, "simt": 0}
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
@@ -1048,7 +1079,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     the forward and backward kernels, against the same step on CPU tensors
     (the plain versions): the loss, every gradient (relative L2 1e-3), and
     the launches: each norm and attention twice forward (remat), once
-    backward."""
+    backward (fp32: the SIMT backward)."""
     from repro_torch.configs import registry
     from repro_torch.core.pytree import leaves
     from repro_torch.models import stacking, transformer
@@ -1062,12 +1093,14 @@ def test_train_step_on_card_matches_cpu(cuda):
     x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96)))
     y = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96)))
     grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
-    counts = (rms.launches, rms.bwd_launches, fa.launches, fa.bwd_launches)
+    counts = (rms.launches, rms.bwd_launches, fa.launches, fa.bwd_launches,
+              fa.bwd_routes["simt"])
     (loss_d, _), g_d = grad_fn(dev, x.to(cuda), y.to(cuda))
     L = cfg.n_layers
     assert (rms.launches - counts[0], rms.bwd_launches - counts[1],
-            fa.launches - counts[2], fa.bwd_launches - counts[3]) == \
-        (2 * 2 * L + 1, 2 * (2 * L + 1), 2 * L, 3 * L)
+            fa.launches - counts[2], fa.bwd_launches - counts[3],
+            fa.bwd_routes["simt"] - counts[4]) == \
+        (2 * 2 * L + 1, 2 * (2 * L + 1), 2 * L, 3 * L, 3 * L)
     (loss_c, _), g_c = grad_fn(cpu, x, y)
     assert abs(loss_d.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
     g_d, g_c = leaves(g_d), leaves(g_c)
