@@ -91,28 +91,32 @@ nine phases; any mismatch raises, so the script exits non-zero:
     requests/s, each class's device busy time by its reference plan and
     the phase's peak memory.
 
-(i) training: internlm2-1.8b (configs/internlm2_1_8b.py), the only
-    dense model that trains on one card with its AdamW state.  First the
-    backward kernels of RMSNorm and flash attention against their plain
-    versions at every instance the path launches (4096 x 2048 bf16 and
-    256 x 2048 fp32; B4 S1024 H16/8 Dh128 bf16 causal on the tensor-core
-    route and B1 S256 fp32 on the SIMT route), a windowed row, Dh 64 and
-    256, a ragged S and window 0 (every gradient exactly 0), each naming
-    its route, timed beside the plain version, the backward of
+(i) training: internlm2-1.8b (configs/internlm2_1_8b.py), the only dense
+    model that trains on one card with its AdamW state.  First the backward
+    kernels of RMSNorm and flash attention against their plain versions at
+    every instance the path launches (4096 x 2048 bf16 and 256 x 2048 fp32,
+    RMSNorm's block route; B4 S1024 H16/8 Dh128 bf16 causal on the
+    tensor-core route and B1 S256 fp32 on the SIMT route), RMSNorm's at the
+    norms of the families still to train on the card (rwkv6-3b's ln_x 163840
+    x 64 and qwen3's q-norm width 131072 x 128 on its warp route,
+    recurrentgemma-2b's 4096 x 2560), flash attention's at a windowed row,
+    Dh 64 and 256, a ragged S and window 0 (every gradient exactly 0), each
+    naming its route, timed beside the plain version, the backward of
     ``F.rms_norm`` and of ``F.scaled_dot_product_attention`` (yardsticks,
     never on the path; SDPA's backend pinned, flash for causal rows,
     efficient for masked ones, and timed in turns with the kernel) and the
     bound.  Then 2 layers at full width in fp32, one remat step's loss and
-    every gradient on the card against the CPU plain path (relative L2
-    1e-3; the attention backward all on the SIMT route).  Then the model
-    at full width and depth in bf16, 5 remat steps of ``launch/train.py``'s
-    step (AdamW, warmup 1) on one fixed 4 x 1024 batch: every gradient
-    leaf finite and non-zero, the loss falling, the exact forward (remat
-    runs each layer's twice) and backward launches, the attention
-    backward's all on the tensor-core route; a checkpoint after step 2
-    restored bitwise and step 3 taken again from it (loss within 1e-3);
-    tokens/s, device busy and idle share of a profiled step, the top
-    kernels, one AdamW update's time alone, and peak memory.
+    every gradient on the card against the CPU plain path (relative L2 1e-3;
+    the attention backward all on the SIMT route, RMSNorm's on its block
+    route).  Then the model at full width and depth in bf16, 5 remat steps of
+    ``launch/train.py``'s step (AdamW, warmup 1) on one fixed 4 x 1024
+    batch: every gradient leaf finite and non-zero, the loss falling, the
+    exact forward (remat runs each layer's twice) and backward launches, the
+    attention backward's all on the tensor-core route and RMSNorm's on its
+    block route; a checkpoint after step 2 restored bitwise and step 3 taken
+    again from it (loss within 1e-3); tokens/s, device busy and idle share
+    of a profiled step, the top kernels, one AdamW update's time alone, and
+    peak memory.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -1536,11 +1540,6 @@ FA_BWD_ROWS = [
     (2, 1000, 16, 8, 128, True, None, "bfloat16", "ragged S"),
     (1, 1024, 16, 8, 128, True, 0, "bfloat16", "window 0"),
 ]
-# (rows, width, dtype, what): ln1, ln2 and ln_f of the training path and
-# of the fp32 check
-RMS_BWD_ROWS = [(TRAIN_B * TRAIN_S, 2048, "bfloat16", "internlm2-1.8b"),
-                (CHECK_B * CHECK_S, 2048, "float32",
-                 "internlm2-1.8b fp32 check")]
 # a backward row's tolerance, relative to the largest |gradient| of each
 # output: bf16 rounds each output once (2^-9) and reads the forward's bf16
 # output in D = rowsum(dO * O); fp32 sums in other orders
@@ -1558,6 +1557,14 @@ def backward_rows(torch, dev, rms, fa, sweep):
                                                        attention_mask)
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     from repro_torch.launch.time_k1k2 import FLUSH_BYTES, time_ms
+    # the RMSNorm backward's rows (rows, width, dtype, what): ln1, ln2 and
+    # ln_f of the training path and of the fp32 check, then the norms of
+    # the families still to train on the card (rwkv6-3b's per-head ln_x,
+    # qwen3's q-norm width, recurrentgemma-2b), each at 4096 tokens;
+    # launch/time_rms_bwd.py times the same rows of any tree
+    from repro_torch.launch.time_rms_bwd import ROWS as RMS_BWD_ROWS
+    from repro_torch.launch.time_rms_bwd import inputs as rms_bwd_inputs
+    from repro_torch.launch.time_rms_bwd import settle
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -1603,15 +1610,16 @@ def backward_rows(torch, dev, rms, fa, sweep):
         return r
 
     for rows, d, dt, what in RMS_BWD_ROWS:
-        dtype = dtypes[dt]
-        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        g = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
-        dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        before = rms.bwd_launches
+        x, g, dy = rms_bwd_inputs(torch, dev, gen, rows, d, dt)
+        route = rms.route_bwd(x, g, dy)
+        before, by_route = rms.bwd_launches, dict(rms.bwd_routes)
         got = rms.rmsnorm_bwd(x, g, dy)
-        if rms.bwd_launches != before + 2:
-            raise AssertionError("rmsnorm backward: not two launches")
+        launched = {r: rms.bwd_routes[r] - n for r, n in by_route.items()}
+        if rms.bwd_launches != before + 2 or launched[route] != 2:
+            raise AssertionError(f"rmsnorm backward: launches by route "
+                                 f"{launched}, want 2 on {route}")
         err = held("rmsnorm_bwd", what, dt, got, rmsnorm_bwd_ref(x, g, dy))
+        settle(torch, lambda: rms.rmsnorm_bwd(x, g, dy))
         xl, gl = (t.clone().requires_grad_(True) for t in (x, g))
         y_lib = F.rms_norm(xl, (d,), gl, 1e-6)
         case = f"{what} {rows}x{d} with g"
@@ -1621,8 +1629,10 @@ def backward_rows(torch, dev, rms, fa, sweep):
                  "library_ms": lambda: torch.autograd.grad(
                      y_lib, (xl, gl), dy, retain_graph=True)},
                 10.0 * rows * d,
-                (3 * rows * d + 2 * d) * x.element_size())
+                (3 * rows * d + 2 * d) * x.element_size(),
+                {"route": route, "library": "F.rms_norm backward"})
         entries.setdefault("rmsnorm_bwd", r)
+        del x, g, dy, xl, gl, y_lib, got
 
     for B, S, H, KV, Dh, causal, win, dt, what in FA_BWD_ROWS:
         dtype = dtypes[dt]
@@ -1741,6 +1751,7 @@ def train_check(torch, dev, card):
     from repro_torch.configs import registry
     from repro_torch.core.pytree import leaves
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
     from repro_torch.models import stacking, transformer
     from repro_torch.train import step as tstep
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1752,13 +1763,18 @@ def train_check(torch, dev, card):
     x = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
     y = torch.from_numpy(rng.integers(0, cfg.vocab, (CHECK_B, CHECK_S)))
     grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
-    routes = dict(fa.bwd_routes)
+    routes, rms_routes = dict(fa.bwd_routes), dict(rms.bwd_routes)
     (loss_d, _), g_d = grad_fn(card_p, x.to(dev), y.to(dev))
     routes = {r: fa.bwd_routes[r] - n for r, n in routes.items()}
-    if routes != {"wgmma": 0, "simt": 3 * CHECK_LAYERS}:
-        raise AssertionError(f"train check: flash attention backward "
-                             f"launches by route {routes}, want all "
-                             f"{3 * CHECK_LAYERS} on simt (fp32)")
+    rms_routes = {r: rms.bwd_routes[r] - n for r, n in rms_routes.items()}
+    # ln1, ln2 a layer and ln_f, two launches each, 2048 fp32 wide
+    want_rms = 2 * (2 * CHECK_LAYERS + 1)
+    if routes != {"wgmma": 0, "simt": 3 * CHECK_LAYERS} or rms_routes != {
+            "warp": 0, "block": want_rms, "scalar": 0}:
+        raise AssertionError(f"train check: backward launches by route: "
+                             f"flash attention {routes}, want all "
+                             f"{3 * CHECK_LAYERS} on simt (fp32); RMSNorm "
+                             f"{rms_routes}, want all {want_rms} on block")
     t0 = time.perf_counter()
     (loss_c, _), g_c = grad_fn(cpu, x, y)
     cpu_s = time.perf_counter() - t0
@@ -1770,8 +1786,9 @@ def train_check(torch, dev, card):
           f"S{CHECK_S}: loss card {loss_d.item():.6f}, CPU "
           f"{loss_c.item():.6f} (relative {loss_rel:.2e}); gradients: "
           f"{len(rels)} leaves, worst relative L2 {rels[worst]:.2e} (leaf "
-          f"{worst}), limit {CHECK_TOL:.0e}; flash attention backward "
-          f"launches by route {routes}; CPU step {cpu_s:.1f} s [{card}]")
+          f"{worst}), limit {CHECK_TOL:.0e}; backward launches by route: "
+          f"flash attention {routes}, RMSNorm {rms_routes}; CPU step "
+          f"{cpu_s:.1f} s [{card}]")
     if loss_rel > CHECK_TOL or rels[worst] > CHECK_TOL:
         raise AssertionError(f"train check beyond {CHECK_TOL}: loss "
                              f"{loss_rel}, gradient leaf {worst} "
@@ -1827,6 +1844,8 @@ def phase_train(torch, dev, card, counted, sweep):
     want_bwd = {"rmsnorm": 2 * norms * TRAIN_STEPS,        # rows, dg sum
                 "flash_attention": 3 * L * TRAIN_STEPS}     # a, b, c
     want_bwd_routes = {"wgmma": want_bwd["flash_attention"], "simt": 0}
+    want_rms_bwd_routes = {"warp": 0, "block": want_bwd["rmsnorm"],
+                           "scalar": 0}
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     mgr = CheckpointManager(str(ckpt_dir), keep=1)
@@ -1874,18 +1893,23 @@ def phase_train(torch, dev, card, counted, sweep):
     bwd = {"rmsnorm": rms.bwd_launches, "flash_attention": fa.bwd_launches}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     routes, bwd_routes = dict(fa.routes), dict(fa.bwd_routes)
+    rms_bwd_routes = dict(rms.bwd_routes)
     if fwd != want_fwd or bwd != want_bwd or routes != {
             "wgmma": want_fwd["flash_attention"], "simt": 0} or \
-            bwd_routes != want_bwd_routes:
+            bwd_routes != want_bwd_routes or \
+            rms_bwd_routes != want_rms_bwd_routes:
         raise AssertionError(f"train launches forward {fwd} (flash "
                              f"attention by route {routes}), backward "
                              f"{bwd} (flash attention by route "
-                             f"{bwd_routes}); want {want_fwd}, {want_bwd}, "
-                             f"all flash attention on wgmma")
+                             f"{bwd_routes}, RMSNorm {rms_bwd_routes}); "
+                             f"want {want_fwd}, {want_bwd}, all flash "
+                             f"attention on wgmma, all RMSNorm backward on "
+                             f"block")
     print(f"train launches over {TRAIN_STEPS} steps: forward {fwd} "
           f"(flash attention by route {routes}; RMSNorm by route "
           f"{dict(rms.routes)}), backward {bwd} (flash attention by route "
-          f"{bwd_routes}): per step RMSNorm {norms} + {2 * L} (remat) "
+          f"{bwd_routes}; RMSNorm by route {rms_bwd_routes}): per step "
+          f"RMSNorm {norms} + {2 * L} (remat) "
           f"forward, {2 * norms} backward; flash attention {L} + {L} "
           f"forward, {3 * L} backward")
     if not losses[-1] < losses[0]:
@@ -1959,6 +1983,7 @@ def phase_train(torch, dev, card, counted, sweep):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     bwd["flash_attention_routes"] = bwd_routes
+    bwd["rmsnorm_routes"] = rms_bwd_routes
     return fwd, bwd, entries
 
 

@@ -50,11 +50,12 @@ SIGNATURES = {
                           _P],
     "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _LL, ctypes.c_float, _I, _I,
                            _P],
-    # x, g, dy, dx, workspace, rows, d, blocks, eps, stream
-    "repro_rmsnorm_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
-                              ctypes.c_float, _P],
-    "repro_rmsnorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I,
-                               ctypes.c_float, _P],
+    # x, g, dy, dx, workspace, rows, d, x's and dy's row strides,
+    # blocks, eps, route, stream
+    "repro_rmsnorm_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I,
+                              ctypes.c_float, _I, _P],
+    "repro_rmsnorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I,
+                               ctypes.c_float, _I, _P],
     # workspace, dg, blocks, d, stream
     "repro_rmsnorm_bwd_dg_f32": [_P, _P, _I, _I, _P],
     "repro_rmsnorm_bwd_dg_bf16": [_P, _P, _I, _I, _P],

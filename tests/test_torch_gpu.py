@@ -865,24 +865,128 @@ def _rel_err(got, want):
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4096, 2048), (37, 128), (9, 100),
-                                   (3, 5, 96), (5, 8192), (1, 2560),
-                                   (600, 64), (70, 384), (11, 1000)])
-@pytest.mark.parametrize("gain", [True, False])
-def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, gain):
-    """dx and dg of the backward kernel (internlm2-1.8b's 4096 x 2048 among
-    the shapes; every instance: 1, 2, 4, 8, 16 and 32 columns a thread)
-    against rmsnorm_bwd_ref; two launches with a gain (the rows, then dg's
-    ordered sum), one without; two calls bitwise equal."""
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
-    x = _randn(shape, dtype, cuda, 31)
-    g = (1 + 0.1 * _randn(shape[-1:], "float32", cuda, 32)).to(
+# shape, dtype, route, view: the training path's 4096 x 2048 (bf16, and the
+# fp32 check's width), rwkv6-3b's ln_x (163840 x 64), qwen3's q-norm width
+# (131072 x 128) and recurrentgemma-2b's 4096 x 2560, then every compiled
+# instance of each route in both dtypes: warp G 1, 2, 4, 8, 16, 32 lanes a
+# row and 2 or 4 vectors a lane; block 2, 4 and 8 vectors a thread (96 to
+# 256 threads); scalar 1 to 32 columns a thread; ragged rows and ragged lane
+# counts (12, 24, 25, 48, 125 vectors), most shapes in both dtypes; and
+# views: rows wider apart than the width by 16 bytes (vector routes, row
+# strides read), by one element, or x, dy or g one element past a 16-byte
+# boundary (scalar)
+RMS_BWD_CASES = [
+    ((4096, 2048), "bfloat16", "block", None),
+    ((163840, 64), "bfloat16", "warp", None),
+    ((131072, 128), "bfloat16", "warp", None),
+    ((4096, 2560), "bfloat16", "block", None),
+    ((256, 2048), "float32", "block", None),
+    ((4096, 2048), "float32", "block", None),
+    ((37, 8), "bfloat16", "warp", None),
+    ((37, 16), "bfloat16", "warp", None),
+    ((40, 32), "bfloat16", "warp", None),
+    ((600, 64), "bfloat16", "warp", None),
+    ((3, 5, 96), "bfloat16", "warp", None),
+    ((37, 128), "bfloat16", "warp", None),
+    ((70, 256), "bfloat16", "warp", None),
+    ((70, 384), "bfloat16", "warp", None),
+    ((70, 512), "bfloat16", "warp", None),
+    ((11, 1000), "bfloat16", "warp", None),
+    ((9, 1024), "bfloat16", "warp", None),
+    ((33, 1032), "bfloat16", "block", None),
+    ((1, 2560), "bfloat16", "block", None),
+    ((5, 8192), "bfloat16", "block", None),
+    ((37, 4), "float32", "warp", None),
+    ((37, 8), "float32", "warp", None),
+    ((37, 16), "float32", "warp", None),
+    ((40, 32), "float32", "warp", None),
+    ((3, 5, 64), "float32", "warp", None),
+    ((70, 128), "float32", "warp", None),
+    ((70, 256), "float32", "warp", None),
+    ((70, 384), "float32", "warp", None),
+    ((9, 512), "float32", "warp", None),
+    ((11, 1000), "float32", "block", None),
+    ((5, 2560), "float32", "block", None),
+    ((5, 8192), "float32", "block", None),
+    ((37, 128), "float32", "warp", None),
+    ((9, 100), "float32", "warp", None),
+    ((3, 5, 96), "float32", "warp", None),
+    ((600, 64), "float32", "warp", None),
+    ((1, 2560), "float32", "block", None),
+    ((9, 100), "bfloat16", "scalar", None),
+    ((7, 300), "bfloat16", "scalar", None),
+    ((7, 1002), "bfloat16", "scalar", None),
+    ((5, 2002), "bfloat16", "scalar", None),
+    ((5, 4002), "bfloat16", "scalar", None),
+    ((3, 8190), "bfloat16", "scalar", None),
+    ((9, 101), "float32", "scalar", None),
+    ((7, 301), "float32", "scalar", None),
+    ((7, 1001), "float32", "scalar", None),
+    ((5, 2001), "float32", "scalar", None),
+    ((5, 4001), "float32", "scalar", None),
+    ((3, 8191), "float32", "scalar", None),
+    ((600, 64), "bfloat16", "warp", "rows 16 bytes apart"),
+    ((70, 2048), "bfloat16", "block", "rows 16 bytes apart"),
+    ((70, 512), "float32", "warp", "rows 16 bytes apart"),
+    ((600, 64), "bfloat16", "scalar", "rows one element apart"),
+    ((70, 2048), "float32", "scalar", "rows one element apart"),
+    ((4096, 2048), "bfloat16", "scalar", "x misaligned"),
+    ((600, 128), "bfloat16", "scalar", "dy misaligned"),
+    ((70, 2560), "float32", "scalar", "g misaligned"),
+]
+
+
+def _rms_bwd_operands(shape, dtype, view, gain, device):
+    """x, g (None without a gain) and dy of a case, as ``view`` lays
+    them out."""
+    d = shape[-1]
+    e = 16 // torch.empty(0, dtype=DTYPES[dtype]).element_size()
+
+    def laid(t, pad, off):
+        # t's values in rows ``pad`` elements wider, ``off`` elements in
+        rows = t.numel() // d
+        buf = torch.zeros(rows * (d + pad) + off, dtype=t.dtype,
+                          device=device)
+        out = buf[off:].view(rows, d + pad)[:, :d]
+        out.copy_(t.reshape(rows, d))
+        return out.view(t.shape) if pad == 0 else out
+
+    x = _randn(shape, dtype, device, 31)
+    g = (1 + 0.1 * _randn(shape[-1:], "float32", device, 32)).to(
         DTYPES[dtype]) if gain else None
-    dy = _randn(shape, dtype, cuda, 33)
-    before = rms.bwd_launches
+    dy = _randn(shape, dtype, device, 33)
+    if view == "rows 16 bytes apart":
+        x, dy = laid(x, e, 0), laid(dy, e, 0)
+    elif view == "rows one element apart":
+        x, dy = laid(x, 1, 0), laid(dy, 1, 0)
+    elif view == "x misaligned":
+        x = laid(x, 0, 1)
+    elif view == "dy misaligned":
+        dy = laid(dy, 0, 1)
+    elif view == "g misaligned" and gain:
+        g = laid(g, 0, 1)
+    return x, g, dy
+
+
+@pytest.mark.parametrize("shape,dtype,route,view", RMS_BWD_CASES)
+@pytest.mark.parametrize("gain", [True, False])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, route, view,
+                                          gain):
+    """dx and dg of the backward kernel against rmsnorm_bwd_ref on the
+    route the case names (every compiled instance of each route among the
+    cases); two launches with a gain (the rows, then dg's ordered sum), one
+    without, all on that route; two calls bitwise equal."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    x, g, dy = _rms_bwd_operands(shape, dtype, view, gain, cuda)
+    if view == "g misaligned" and not gain:
+        route = "block"                   # nothing misaligned is left
+    assert rms.route_bwd(x, g, dy) == route
+    before, by_route = rms.bwd_launches, dict(rms.bwd_routes)
     dx, dg = rms.rmsnorm_bwd(x, g, dy)
-    assert rms.bwd_launches == before + (2 if gain else 1)
+    n = 2 if gain else 1
+    assert rms.bwd_launches == before + n
+    assert {r: rms.bwd_routes[r] - k for r, k in by_route.items()} == {
+        r: n if r == route else 0 for r in by_route}
     want_dx, want_dg = rmsnorm_bwd_ref(x, g, dy)
     assert _rel_err(dx, want_dx) <= BWD_TOL[dtype]
     if gain:
@@ -905,12 +1009,14 @@ def test_rmsnorm_autograd_on_card(cuda, dtype):
     dy = _randn((64, 2048), dtype, cuda, 36)
     x, g = (t.clone().requires_grad_(True) for t in (x0, g0))
     f, b, blk = rms.launches, rms.bwd_launches, rms.routes["block"]
+    bwd_blk = rms.bwd_routes["block"]
     y = rms.rmsnorm(x, g)
     assert y.grad_fn is not None
     assert (rms.launches, rms.routes["block"]) == (f + 1, blk + 1)
     assert torch.equal(y.detach(), rms.rmsnorm(x0, g0))
     dx, dg = torch.autograd.grad(y, (x, g), dy)
     assert rms.bwd_launches == b + 2
+    assert rms.bwd_routes["block"] == bwd_blk + 2
     want = rmsnorm_bwd_ref(x0, g0, dy)
     assert _rel_err(dx, want[0]) <= BWD_TOL[dtype]
     assert _rel_err(dg, want[1]) <= BWD_TOL[dtype]

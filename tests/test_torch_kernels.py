@@ -355,3 +355,172 @@ def test_rmsnorm_route_of_views():
     assert trms.route(_meta((128, 50), bf).t()) == "warp"
     assert trms.route(torch.zeros(6, 130)[:, 2:]) == "scalar"      # CPU
     assert trms.route(torch.zeros(6, 132)[:, 4:]) == "warp"
+
+
+# ------------------------------------------------- the RMSNorm backward
+# route_bwd() and grid_bwd() read dtypes, widths, row strides and data
+# pointers only, never the row count (route_bwd) or the card (grid_bwd is
+# given the SM count): they run on meta and CPU tensors here
+
+# width -> the backward's route: rwkv6's ln_x (64), qwen3's q/k-norm
+# (128) and rows up to 1024 bf16 / 512 fp32 on the warp route; wider rows
+# (2048 internlm2-1.8b and olmoe, 2560 recurrentgemma, 8192 the widest) on
+# the block route; 100 bf16 (12.5 vectors) on the scalar route
+RMS_BWD_WIDTHS = {
+    64: ("warp", "warp"), 100: ("scalar", "warp"), 128: ("warp", "warp"),
+    1000: ("warp", "block"), 1024: ("warp", "block"),
+    2048: ("block", "block"), 2560: ("block", "block"),
+    8192: ("block", "block"),
+}
+
+
+@pytest.mark.parametrize("d", sorted(RMS_BWD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_rmsnorm_route_bwd_by_width(d, dtype, device):
+    want = RMS_BWD_WIDTHS[d][dtype == "float32"]
+    dt = DTYPES[dtype][1]
+    rows = 4096 if device == "meta" else 3
+    x = torch.empty(rows, d, dtype=dt, device=device)
+    g = torch.empty(d, dtype=dt, device=device)
+    assert trms.route_bwd(x, g, torch.empty_like(x)) == want
+    assert trms.route_bwd(x, g) == want
+    assert trms.route_bwd(x) == want
+    assert trms.route_bwd(x.reshape(rows, 1, d)) == want
+
+
+def test_rmsnorm_route_bwd_of_views():
+    """x, dy or g one element past a 16-byte boundary, or rows an odd
+    number of elements apart, take the scalar route; rows 16 bytes wider
+    apart than the width keep their vector route (the kernels read the
+    row stride); a view with a non-unit column stride is made contiguous
+    first; a dy in another dtype is converted first."""
+    bf = torch.bfloat16
+    x = _meta((50, 128), bf)
+    assert trms.route_bwd(_meta((50, 136), bf)[:, 1:129]) == "scalar"
+    assert trms.route_bwd(_meta((50, 136), bf)[:, 8:136]) == "warp"
+    assert trms.route_bwd(_meta((50, 132), bf)[:, :128]) == "scalar"
+    assert trms.route_bwd(_meta((50, 2056), bf)[:, :2048]) == "block"
+    assert trms.route_bwd(_meta((50, 2049), bf)[:, :2048]) == "scalar"
+    assert trms.route_bwd(x, _meta((129,), bf)[1:]) == "scalar"
+    assert trms.route_bwd(x, None, _meta((50, 129), bf)[:, 1:]) == "scalar"
+    assert trms.route_bwd(x, None, _meta((50, 136), bf)[:, :128]) == "warp"
+    assert trms.route_bwd(x, None, _meta((50, 128))) == "warp"      # fp32 dy
+    assert trms.route_bwd(_meta((128, 50), bf).t()) == "warp"
+    flat = torch.zeros(6 * 64 + 1)
+    assert trms.route_bwd(flat[1:].view(6, 64)) == "scalar"         # CPU
+    assert trms.route_bwd(flat[:-1].view(6, 64)) == "warp"
+
+
+@pytest.mark.parametrize("d", sorted(RMS_BWD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("pad", [0, 8, 1])
+def test_rmsnorm_route_bwd_ignores_the_row_count(d, dtype, pad):
+    """One row, a few, a prefill's and rwkv6's 163840: the same route, rows
+    laid out ``pad`` elements wider apart than the width (a lone row's
+    stride is read as any other's)."""
+    dt = DTYPES[dtype][1]
+    got = {trms.route_bwd(_meta((rows, d), dt, (d + pad, 1)))
+           for rows in (1, 2, 7, 4096, 163840)}
+    assert len(got) == 1
+    if pad == 1:
+        assert got == {"scalar"}
+
+
+def test_rmsnorm_route_bwd_refuses_past_the_widest_row():
+    with pytest.raises(ValueError, match="8192"):
+        trms.route_bwd(_meta((4, 8200)))
+    with pytest.raises(ValueError, match="does not match"):
+        trms.route_bwd(_meta((4, 64)), None, _meta((4, 32)))
+    with pytest.raises(ValueError, match="no rmsnorm backward route"):
+        trms.grid_bwd("simt", 4, 64, 2, 132)
+
+
+@pytest.mark.parametrize("d,dtype", [(64, "bfloat16"), (1000, "bfloat16"),
+                                     (2048, "bfloat16"), (100, "bfloat16"),
+                                     (512, "float32"), (2048, "float32"),
+                                     (101, "float32")])
+@pytest.mark.parametrize("gain", [True, False])
+def test_rmsnorm_bwd_on_cpu_is_the_plain_version(d, dtype, gain):
+    """On CPU tensors the wrapper is its plain version, bitwise, whatever
+    route the same operands would take on the card."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    dt = DTYPES[dtype][1]
+    rng = np.random.default_rng(d)
+    x, dy = (torch.from_numpy(rng.normal(size=(5, 3, d)).astype(np.float32)
+                              ).to(dt) for _ in range(2))
+    g = torch.from_numpy(1 + 0.1 * rng.normal(size=d).astype(
+        np.float32)).to(dt) if gain else None
+    got, want = trms.rmsnorm_bwd(x, g, dy), rmsnorm_bwd_ref(x, g, dy)
+    assert torch.equal(got[0], want[0])
+    assert got[1] is None if not gain else torch.equal(got[1], want[1])
+
+
+# (rows, width, element size): phase i's rows (internlm2-1.8b bf16 and the
+# fp32 check, rwkv6-3b's ln_x, qwen3's q-norm width, recurrentgemma-2b)
+# and the widest rows
+RMS_BWD_GRID_ROWS = [(4096, 2048, 2), (256, 2048, 4), (163840, 64, 2),
+                     (131072, 128, 2), (4096, 2560, 2), (4096, 8192, 2),
+                     (4096, 8192, 4), (32000, 1024, 2), (5, 64, 2),
+                     (1, 2048, 2)]
+
+
+@pytest.mark.parametrize("rows,d,size", RMS_BWD_GRID_ROWS)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_rmsnorm_grid_bwd_fills_the_card_once(rows, d, size, sms):
+    """Every block of the row kernel resident at once (at most the route's
+    blocks an SM: 4, 2 or 1 on the warp route as a lane holds 1, 2 or 4
+    vectors; on the block route up to 4, as its ring of rows and its
+    registers at the kernel's cap fit), at least one block an SM where the
+    rows allow it, and no warp or block more than one row group ahead of
+    another."""
+    x = _meta((rows, d), torch.bfloat16 if size == 2 else torch.float32)
+    route = trms.route_bwd(x)
+    blocks = trms.grid_bwd(route, rows, d, size, sms)
+    assert 1 <= blocks <= rows
+    e = 16 // size
+    nvec = d // e
+    if route == "warp":
+        lanes = min(32, 1 << max(0, nvec - 1).bit_length())
+        group = 32 // lanes * (2 if nvec <= 32 else 1)
+        groups = -(-rows // group)
+        vecs = 1 if nvec <= 32 else 2 if nvec <= 64 else 4
+        assert blocks <= 4 // vecs * sms
+        warps = blocks * trms.BWD_WARPS
+        # grid-stride: each warp walks floor or ceil of groups / warps
+        assert -(-groups // warps) - groups // warps <= 1
+        if groups >= trms.BWD_WARPS * sms:
+            assert blocks >= sms
+    else:
+        row_bytes = 2 * d * size
+        stages = min(trms.BWD_MAX_STAGES,
+                     max(2, 1 + -(-trms.BWD_RING_BYTES // row_bytes)))
+        vecs = 2 if nvec <= 256 else 4 if nvec <= 512 else 8
+        threads = -(-nvec // vecs + 31) // 32 * 32
+        per_sm = -(-blocks // sms)
+        assert per_sm <= 4
+        assert per_sm * (stages * row_bytes + 1024) <= trms.SMEM_PER_SM
+        assert per_sm * threads * (256 if vecs == 8 else 128) <= 65536
+        if rows >= sms:
+            assert blocks >= sms
+        assert -(-rows // blocks) - rows // blocks <= 1
+
+
+def test_rmsnorm_bwd_constants_match_the_kernels():
+    """The launch shapes grid_bwd() reckons with are the ones
+    csrc/rmsnorm_bwd.cu compiles."""
+    import re
+    from pathlib import Path
+    src = (Path(trms.__file__).resolve().parents[2] / "csrc" /
+           "rmsnorm_bwd.cu").read_text()
+
+    def const(name):
+        # an integer, or a product of two ("24 * 1024")
+        m = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", src)
+        return int(m.group(1)) * int(m.group(2) or 1)
+
+    assert const("WARP_THREADS") // 32 == trms.BWD_WARPS
+    assert const("RING_BYTES") == trms.BWD_RING_BYTES
+    assert const("MAX_STAGES") == trms.BWD_MAX_STAGES
+    assert const("MAX_WIDTH") == trms.BWD_MAX_WIDTH
+    assert const("WARP_MAX_VECS") == trms.WARP_MAX_VECS
