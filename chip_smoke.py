@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-nine phases; any mismatch raises, so the script exits non-zero:
+ten phases; any mismatch raises, so the script exits non-zero:
 
 (a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
     grouped-matmul kernels against their plain torch versions on the
@@ -117,6 +117,30 @@ nine phases; any mismatch raises, so the script exits non-zero:
     again from it (loss within 1e-3); tokens/s, device busy and idle share
     of a profiled step, the top kernels, one AdamW update's time alone, and
     peak memory.
+
+(j) training the other families: rwkv6-3b, recurrentgemma-2b and
+    granite-moe-3b-a800m (olmoe-1b-7b's AdamW state does not fit one
+    card).  First the backward kernels of WKV6, the RG-LRU scan and the
+    grouped matmul against their plain versions, in bf16 and fp32, two
+    calls bitwise equal: WKV6 at rwkv6-3b's B4 T1024 and B1 T1000 H40 D64
+    and at every other compiled head width (16, 32, 128), decays down to
+    0.01; the scan at B4 T1024 D2560 and a ragged strip; the grouped
+    matmul at granite's gate/up and down products and at each of its
+    backward's tensor-core instances, on the tensor cores in bf16; timed beside the plain version, the bound and, for the
+    grouped matmul, ``torch.bmm`` on the same two products.  Then each
+    family at full width and 2 layers (recurrentgemma-2b: its whole rec,
+    rec, attn unit) in fp32, one remat step on the card against the CPU
+    plain path (relative L2 1e-3 a gradient leaf) and twice on the card
+    bitwise; and in bf16, one step twice bitwise.  Then each family at
+    full width and depth in bf16, 4 remat steps of the launcher's donated
+    step (AdamW at the launcher's schedule for 4 steps) on one fixed 4 x
+    1024 batch (a smaller batch only if 4 does not
+    fit): the loss finite and falling, every gradient leaf finite and
+    non-zero, the exact forward and backward launches per kernel and
+    route (K2's backward at the families' widths, K3's at
+    recurrentgemma-2b's H10/KV1 Dh256 window 2048 and granite's H24/KV8
+    Dh64, all on the tensor cores), step ms, tokens/s, peak memory and a
+    profiled step's busy time, idle share and top kernels.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -231,6 +255,15 @@ def main() -> int:
                                               sweep)
     print(f"phase i training ({TRAIN_ARCH}): {time.perf_counter() - t0:.2f}"
           f" s, forward launches {by_path['i']}, backward launches {bwd}")
+    t0 = time.perf_counter()
+    fam_runs, fam_rows = phase_families(torch, dev, smi[0], counted, sweep)
+    for arch, run in fam_runs.items():
+        by_path[f"j {arch}"] = run[1]
+    print(f"phase j training the other families: "
+          f"{time.perf_counter() - t0:.2f} s, batches "
+          f"{ {a: r[0] for a, r in fam_runs.items()} }, forward launches "
+          f"{ {a: r[1] for a, r in fam_runs.items()} }, backward launches "
+          f"{ {a: r[2] for a, r in fam_runs.items()} }")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
     # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
@@ -254,7 +287,8 @@ def main() -> int:
             "replaces": next(k["replaces"] for k in kernels
                              if k["name"] == fwd_name),
             "launches": bwd[fwd_name],
-            "launches_by_path": {"i": bwd[fwd_name]},
+            "launches_by_path": {"i": bwd[fwd_name], **{
+                f"j {a}": r[2][fwd_name] for a, r in fam_runs.items()}},
             "shape": f"{r['case']} {r['dtype']}",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -264,6 +298,33 @@ def main() -> int:
                 "launches_by_route": bwd[f"{fwd_name}_routes"]}
                if f"{fwd_name}_routes" in bwd else {})})
         if bwd[fwd_name] == 0:
+            raise RuntimeError(f"{name} never launched on its path")
+
+    # the backward kernels of K4, K5 and K6, launched by phase j's training
+    # steps of the family each serves
+    for name, fwd_name, arch, source in (
+            ("wkv6_bwd", "wkv6", "rwkv6-3b", "wkv6_bwd.cu"),
+            ("rglru_bwd", "rglru", "recurrentgemma-2b", "rglru_scan_bwd.cu"),
+            ("grouped_matmul_bwd", "grouped_matmul", "granite-moe-3b-a800m",
+             "grouped_matmul.cu")):
+        r = fam_rows[name]
+        launches = fam_runs[arch][2][fwd_name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": next(k["replaces"] for k in kernels
+                             if k["name"] == fwd_name),
+            "launches": launches,
+            "launches_by_path": {f"j {arch}": launches},
+            "shape": f"{r['case']} {r['dtype']}",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            **({"kernel_route": r["route"], "library": "torch.bmm",
+                "launches_by_route": fam_runs[arch][3][fwd_name]}
+               if "route" in r else {})})
+        if launches == 0:
             raise RuntimeError(f"{name} never launched on its path")
 
     print(smi[0])
@@ -1487,7 +1548,9 @@ def _device_busy_s(torch, fn):
     last the ms of RMSNorm's, WKV6's and the RG-LRU scan's kernels), from
     a ``torch.profiler`` trace; busy time is the union of the kernels'
     intervals, so overlapping kernels count once.  The last entries also
-    give the backward kernels of K3 and K2 (in K2's sum too)."""
+    give the backward kernels of K3, K2 (in K2's sum too), K4 and K5, and
+    K6's tensor-core kernel, whose forward and backward launches share a
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1514,7 +1577,11 @@ def _device_busy_s(torch, fn):
                                ("K4 wkv6_kernel", "wkv6_kernel"),
                                ("K5 rglru_kernel", "rglru_kernel"),
                                ("K3 backward fa_bwd_*", "fa_bwd_"),
-                               ("K2 backward rms_bwd_*", "rms_bwd_"))]
+                               ("K2 backward rms_bwd_*", "rms_bwd_"),
+                               ("K4 backward wkv6_bwd_*", "wkv6_bwd_"),
+                               ("K5 backward rglru_bwd_kernel", "rglru_bwd_"),
+                               ("K6 gmm_wgmma_kernel (forward and backward)",
+                                "gmm_wgmma_kernel"))]
     return busy * 1e-6, len(events), [(n[:60], t * 1e-3) for n, t in top]
 
 
@@ -1985,6 +2052,504 @@ def phase_train(torch, dev, card, counted, sweep):
     bwd["flash_attention_routes"] = bwd_routes
     bwd["rmsnorm_routes"] = rms_bwd_routes
     return fwd, bwd, entries
+
+
+# ---------------------------------------------------------------- phase j
+
+FAMILY_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", "granite-moe-3b-a800m")
+FAMILY_B, FAMILY_S, FAMILY_STEPS = 4, 1024, 4
+# layers of the fp32 card-vs-CPU check and of the repeated bf16 step: 2,
+# and recurrentgemma-2b's whole (rec, rec, attn) unit, so that its
+# attention layer and remat run there too
+FAMILY_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3,
+                       "granite-moe-3b-a800m": 2}
+# the new backward kernels' rows: the training path's shape first (the one
+# that stands for the kernel in the kernels line), then the others; each in
+# bf16 and fp32, decays down to 0.01
+WKV_BWD_ROWS = [(4, 1024, 40, 64, "rwkv6-3b training"),
+                (1, 1000, 40, 64, "rwkv6-3b"),
+                (2, 77, 4, 16, "instance D16"), (2, 77, 4, 32, "instance D32"),
+                (2, 77, 4, 128, "instance D128")]
+RGLRU_BWD_ROWS = [(4, 1024, 2560, "recurrentgemma-2b training"),
+                  (2, 77, 2568, "ragged strip")]
+GMM_BWD_ROWS = [(40, 1056, 1536, 512, "granite-moe-3b-a800m gate/up"),
+                (40, 1056, 512, 1536, "granite-moe-3b-a800m down"),
+                # the other tensor-core instances: 64, 128, 192 rows a
+                # tile, for dx (C rows) and dw (D rows)
+                (3, 40, 48, 32, "instance N64"),
+                (3, 100, 96, 40, "instance N128"),
+                (2, 150, 160, 72, "instance N192")]
+# K4's backward: per (b, t, h) the state's recompute, G's step and four
+# contractions over the D x D state, 2 operations an element each
+WKV_BWD_OPS = 12
+
+
+def _time_plain(torch, fn, flush) -> float:
+    """The plain version's device ms: the mean of 2 calls after 1 warm one,
+    each after a zeroing of ``flush`` (it is slow: phase a's 20 would take
+    minutes at the training shapes)."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for n in range(2):
+        flush.zero_()
+        ev[2 * n].record()
+        fn()
+        ev[2 * n + 1].record()
+    torch.cuda.synchronize()
+    return sum(ev[2 * n].elapsed_time(ev[2 * n + 1]) for n in range(2)) / 2
+
+
+def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
+    """The backward kernels of K4, K5 and K6 against their plain versions
+    at the training shapes and at every compiled instance, in bf16 and
+    fp32: two calls bitwise equal, the largest error within BWD_TOL of the
+    largest |gradient|, the launches and routes; timed by phase a's method
+    (cold L2, spin) beside the plain version, the bound and, for K6,
+    ``torch.bmm`` on the same two products.  Returns the rows that stand
+    for each kernel in the kernels line (the training shape, bf16)."""
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_bwd_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+    from repro_torch.launch.time_k1k2 import FLUSH_BYTES, time_ms
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    peaks = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+    tols = {torch.float32: BWD_TOL["float32"],
+            torch.bfloat16: BWD_TOL["bfloat16"]}
+    entries = {}
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    def check(kernel, case, dt, fn, plain, counter, want_launches):
+        before = counter()
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        if counter() - before != 2 * want_launches:
+            raise AssertionError(f"{kernel} {case}: {counter() - before} "
+                                 f"launches for two calls, want "
+                                 f"{2 * want_launches}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{kernel} {case} {names[dt]}: two calls "
+                                 f"differ")
+        want = plain()
+        err = 0.0
+        for n, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{kernel} {case}: output {n} "
+                                     f"{g.dtype} {tuple(g.shape)}, want "
+                                     f"{w.dtype} {tuple(w.shape)}")
+            diff = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            err = max(err, diff)
+            if not diff <= tols[dt] * scale:
+                raise AssertionError(f"{kernel} {case} {names[dt]}: output "
+                                     f"{n} max abs err {diff} beyond "
+                                     f"{tols[dt]} x max |want| {scale}")
+        return err
+
+    def row(kernel, case, dt, err, fn, plain, flops, nbytes, library=None,
+            extra=None):
+        # the kernel and the library call in turns (kernel, library,
+        # library, kernel); then the plain version
+        runs, lib_runs = [], []
+        for turn in ("kernel", "library", "library", "kernel"):
+            if turn == "kernel":
+                runs.append(time_ms(torch, fn, flush))
+            elif library is not None:
+                lib_runs.append(time_ms(torch, library, flush))
+        ms = sum(runs) / len(runs)
+        lib_ms = sum(lib_runs) / len(lib_runs) if lib_runs else None
+        plain_ms = _time_plain(torch, plain, flush)
+        b_ms, b_by = bound(flops, nbytes, peaks[dt])
+        r = {"kernel": kernel, "case": case, "dtype": names[dt],
+             "max_abs_err": err, "ms": ms, "ms_runs": runs,
+             "plain_ms": plain_ms, "library_ms": lib_ms,
+             "library_ms_runs": lib_runs, "bound_ms": b_ms,
+             "bound_by": b_by,
+             "fp32_floor_ms": flops / FP32_FLOPS * 1e3, **(extra or {})}
+        sweep.append(r)
+        lib = ("none" if lib_ms is None else
+               " then ".join(f"{t:.4f}" for t in lib_runs) + " torch.bmm")
+        print(f"backward {kernel} {case} {names[dt]}"
+              f"{' route ' + r['route'] if 'route' in r else ''}: "
+              f"{' then '.join(f'{t:.4f}' for t in runs)} ms (plain "
+              f"{plain_ms:.3f}, library {lib}, bound {b_ms:.5f} by {b_by}, "
+              f"fp32 floor {r['fp32_floor_ms']:.5f}), max abs err "
+              f"{err:.3e}, two calls bitwise equal")
+        return r
+
+    for dt in (torch.bfloat16, torch.float32):
+        for B, T, H, D, what in WKV_BWD_ROWS:
+            r, k, v, dy = (randn(B, T, H, D, dt=dt) for _ in range(4))
+            w = (0.01 + 0.99 * torch.rand(B, T, H, D, generator=gen,
+                                          device=dev)).to(dt)
+            u = randn(H, D, dt=torch.float32, scale=0.3)
+            ds = randn(B, H, D, D, dt=torch.float32)
+            args = (r, k, v, w, u, dy, ds)
+            case = f"{what} B{B} T{T} H{H} D{D}"
+            err = check("wkv6_bwd", case, dt, lambda: wkv.wkv6_bwd(*args),
+                        lambda: wkv6_bwd_ref(*args),
+                        lambda: wkv.bwd_launches, len(wkv.BWD_STAGES))
+            n = B * T * H * D
+            res = row("wkv6_bwd", case, dt, err,
+                      lambda: wkv.wkv6_bwd(*args),
+                      lambda: wkv6_bwd_ref(*args),
+                      WKV_BWD_OPS * B * T * H * D * D,
+                      9 * n * r.element_size() + 4 * (B * H * D * D
+                                                      + 2 * H * D))
+            entries.setdefault("wkv6_bwd", res)
+            del r, k, v, w, u, dy, ds, args
+        for B, T, D, what in RGLRU_BWD_ROWS:
+            a = torch.rand(B, T, D, generator=gen, device=dev).to(dt)
+            b, dh = randn(B, T, D, dt=dt), randn(B, T, D, dt=dt)
+            dhT = randn(B, D, dt=torch.float32)
+            case = f"{what} B{B} T{T} D{D}"
+            err = check("rglru_bwd", case, dt,
+                        lambda: scan.rglru_bwd(a, b, dh, dhT),
+                        lambda: rglru_bwd_ref(a, b, dh, dhT),
+                        lambda: scan.bwd_launches, 1)
+            res = row("rglru_bwd", case, dt, err,
+                      lambda: scan.rglru_bwd(a, b, dh, dhT),
+                      lambda: rglru_bwd_ref(a, b, dh, dhT),
+                      5 * B * T * D,
+                      5 * B * T * D * a.element_size() + 4 * B * D)
+            entries.setdefault("rglru_bwd", res)
+            del a, b, dh, dhT
+        for E, C, D, F, what in GMM_BWD_ROWS:
+            x = randn(E, C, D, dt=dt, scale=0.5)
+            w = randn(E, D, F, dt=dt, scale=D ** -0.5)
+            dy = randn(E, C, F, dt=dt)
+            route = gm.route_bwd(x, w)
+            before = dict(gm.bwd_routes)
+            case = f"{what} ({E},{C},{D})x({E},{D},{F})"
+            err = check("grouped_matmul_bwd", case, dt,
+                        lambda: gm.grouped_matmul_bwd(x, w, dy),
+                        lambda: grouped_matmul_bwd_ref(x, w, dy),
+                        lambda: gm.bwd_launches, 2)
+            took = {k: gm.bwd_routes[k] - n for k, n in before.items()}
+            want = {r: 4 * (r == route) for r in ("wgmma", "simt")}
+            if took != want or (dt == torch.bfloat16 and route != "wgmma"):
+                raise AssertionError(f"grouped_matmul_bwd {case} "
+                                     f"{names[dt]}: routes {took}, want "
+                                     f"{want} ({route}); bf16 must take "
+                                     f"the tensor cores")
+            wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+            res = row("grouped_matmul_bwd", case, dt, err,
+                      lambda: gm.grouped_matmul_bwd(x, w, dy),
+                      lambda: grouped_matmul_bwd_ref(x, w, dy),
+                      4.0 * E * C * D * F,
+                      2 * (E * C * D + E * D * F) * x.element_size()
+                      + E * C * F * x.element_size(),
+                      library=lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)),
+                      extra={"route": route})
+            entries.setdefault("grouped_matmul_bwd", res)
+            del x, w, dy, wt, xt
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def family_expect(torch, cfg, rms, fa, steps: int):
+    """The exact launches of ``steps`` remat train steps of ``cfg``
+    (stacked layers' forward kernels twice a step, tail layers' and ln_f's
+    once; the backward once a layer): ({kernel: forward launches},
+    {kernel: backward launches}, {kernel: {route: launches}} forward and
+    backward), from the model's layer kinds and K2's and K3's pure
+    routes."""
+    G = cfg.n_layers // cfg.unit
+    dt = cfg.param_dtype
+    cpu = torch.device("cpu")   # small operands, for the routes' purity
+    kernels = ("matmul", "rmsnorm", "flash_attention", "wkv6", "rglru",
+               "grouped_matmul")
+    per_call = {"rmsnorm": 2, "flash_attention": 3, "wkv6": 4, "rglru": 1,
+                "grouped_matmul": 2}
+    fwd, bwd = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
+    fr = {k: {} for k in ("rmsnorm", "flash_attention", "grouped_matmul")}
+    br = {k: {} for k in fr}
+
+    def add(kernel, n, times, routes=None):
+        fwd[kernel] += n * times
+        bwd[kernel] += n * per_call[kernel]
+        if routes:
+            f, b = routes
+            fr[kernel][f] = fr[kernel].get(f, 0) + n * times
+            br[kernel][b] = br[kernel].get(b, 0) + n * per_call[kernel]
+
+    def norm(width, times):
+        x = torch.empty((8, width), dtype=dt, device=cpu)
+        g = torch.empty((width,), dtype=dt, device=cpu)
+        add("rmsnorm", 1, times,
+            (rms.route(x, g), rms.route_bwd(x, g, x)))
+
+    def attention(times):
+        q = torch.empty((1, 8, cfg.n_heads, cfg.head_dim), dtype=dt,
+                        device=cpu)
+        k = torch.empty((1, 8, cfg.n_kv, cfg.head_dim), dtype=dt,
+                        device=cpu)
+        add("flash_attention", 1, times,
+            (fa.route(q, k, k), fa.route_bwd(q, k, k)))
+        if cfg.qk_norm:
+            norm(cfg.head_dim, times)
+            norm(cfg.head_dim, times)
+
+    for layer in range(cfg.n_layers):
+        times = 2 if layer < G * cfg.unit else 1
+        kind = cfg.layer_kind(layer % cfg.unit)
+        if cfg.family == "ssm":
+            add("wkv6", 1, times)
+            for width in (cfg.d_model, cfg.d_model, cfg.rwkv_head_dim):
+                norm(width, times)
+        elif cfg.family == "hybrid" and kind == "rec":
+            add("rglru", 1, times)
+            norm(cfg.d_model, times)
+            norm(cfg.d_model, times)
+        elif cfg.family in ("hybrid", "moe"):
+            attention(times)
+            norm(cfg.d_model, times)
+            norm(cfg.d_model, times)
+            if cfg.family == "moe":
+                # bf16 operands TMA reads, widths multiples of 8: wgmma
+                add("grouped_matmul", 3, times, ("wgmma", "wgmma"))
+        else:
+            raise ValueError(f"no launch model for {cfg.name}")
+    norm(cfg.d_model, 1)                      # ln_f
+    scale = lambda d: {k: v * steps for k, v in d.items()}  # noqa: E731
+    return (scale(fwd), scale(bwd),
+            {k: scale(v) for k, v in fr.items()},
+            {k: scale(v) for k, v in br.items()})
+
+
+def _routes_now(counted):
+    return {name: (dict(mod.routes) if hasattr(mod, "routes") else {},
+                   dict(getattr(mod, "bwd_routes", {})))
+            for name, mod in counted.items()}
+
+
+def family_check(torch, dev, card, arch, counted):
+    """``arch`` at full width, FAMILY_CHECK_LAYERS layers: one fp32 remat
+    step's loss and every gradient on the card against the same on CPU
+    tensors (the plain versions) at CHECK_TOL, twice on the card bitwise;
+    then the same depth in bf16 (the training path's routes), one step
+    twice on the card, bitwise."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves
+    from repro_torch.models import stacking
+    from repro_torch.models.api import get_model
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers = FAMILY_CHECK_LAYERS[arch]
+    base = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, base.vocab, (CHECK_B, CHECK_S)))
+    y = torch.from_numpy(rng.integers(0, base.vocab, (CHECK_B, CHECK_S)))
+    cfg = dataclasses.replace(base, dtype="float32")
+    model = get_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    card_p = stacking.tree_map(lambda t: t.to(dev), cpu)
+    grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    before = _routes_now(counted)
+    bwd0 = {n: getattr(m, "bwd_launches", 0) for n, m in counted.items()}
+    (loss_d, _), g_d = grad_fn(card_p, x.to(dev), y.to(dev))
+    bwd = {n: getattr(m, "bwd_launches", 0) - bwd0[n]
+           for n, m in counted.items()}
+    after = _routes_now(counted)
+    routes = {n: {r: after[n][1][r] - c for r, c in before[n][1].items()}
+              for n in after}
+    (loss_d2, _), g_d2 = grad_fn(card_p, x.to(dev), y.to(dev))
+    same = torch.equal(loss_d, loss_d2) and all(
+        torch.equal(a, b) for a, b in zip(leaves(g_d), leaves(g_d2)))
+    t0 = time.perf_counter()
+    (loss_c, _), g_c = grad_fn(cpu, x, y)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss_d.item() - loss_c.item()) / abs(loss_c.item())
+    rels = [_relative_l2(a.cpu(), b)
+            for a, b in zip(leaves(g_d), leaves(g_c))]
+    worst = max(range(len(rels)), key=lambda i: rels[i])
+    # fp32: flash attention's and the grouped matmul's backward on SIMT
+    simt_only = all(routes[n].get("wgmma", 0) == 0
+                    for n in ("flash_attention", "grouped_matmul"))
+    new = {"ssm": "wkv6", "hybrid": "rglru", "moe": "grouped_matmul"}[
+        cfg.family]
+    print(f"family check {arch} {layers} layers fp32 B{CHECK_B} S{CHECK_S}:"
+          f" loss card {loss_d.item():.6f}, CPU {loss_c.item():.6f} "
+          f"(relative {loss_rel:.2e}); gradients: {len(rels)} leaves, worst "
+          f"relative L2 {rels[worst]:.2e} (leaf {worst}), limit "
+          f"{CHECK_TOL:.0e}; backward launches {bwd}, by route {routes}; "
+          f"the card's step twice bitwise equal: {same}; CPU step "
+          f"{cpu_s:.1f} s [{card}]")
+    if loss_rel > CHECK_TOL or rels[worst] > CHECK_TOL:
+        raise AssertionError(f"{arch} check beyond {CHECK_TOL}: loss "
+                             f"{loss_rel}, gradient leaf {worst} "
+                             f"{rels[worst]}")
+    if not same or not simt_only or bwd[new] == 0:
+        raise AssertionError(f"{arch} fp32 check: bitwise repeat {same}, "
+                             f"routes {routes}, {new} backward launches "
+                             f"{bwd[new]}")
+    del card_p, g_d, g_d2, cpu, g_c
+    # bf16 at the same depth: the training path's kernels and routes, one
+    # step twice, every output bitwise
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, dev)
+    grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    xd, yd = x.to(dev), y.to(dev)
+    (l1, _), g1 = grad_fn(params, xd, yd)
+    (l2, _), g2 = grad_fn(params, xd, yd)
+    diff = [n for n, (a, b) in enumerate(zip(leaves(g1), leaves(g2)))
+            if not torch.equal(a, b)]
+    print(f"family check {arch} {layers} layers bf16: one step twice, loss "
+          f"{l1.item():.6f} and {l2.item():.6f}, {len(diff)} of "
+          f"{len(leaves(g1))} gradient leaves differ {diff[:8]} [{card}]")
+    if diff or not torch.equal(l1, l2):
+        raise AssertionError(f"{arch} bf16 step not bitwise repeatable: "
+                             f"leaves {diff}")
+    del params, g1, g2
+    torch.cuda.empty_cache()
+
+
+def family_train(torch, dev, card, arch, counted):
+    """``arch`` at full width and depth in bf16: FAMILY_STEPS remat steps of
+    the launcher's donated step (AdamW at the launcher's schedule for that
+    many steps) on one fixed batch of
+    FAMILY_B rows of FAMILY_S tokens (out of memory fails the phase); the
+    loss finite and falling, every gradient leaf finite and non-zero
+    after step 1, the exact launches per kernel and route, step ms,
+    tokens/s, peak memory and a profiled step.  Returns (batch, forward
+    launches, backward launches, backward launches by route, the
+    summary), the launches those of the FAMILY_STEPS counted steps."""
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = registry.get_config(arch)
+    model = get_model(cfg)
+    # launch/train.py's schedule for a run of FAMILY_STEPS steps (phase i's
+    # warmup 1 of 100 left recurrentgemma-2b's loss at 12.99, 11.69, 9.05,
+    # 13.55 on this batch: its fourth step overshoots)
+    opt_cfg = adamw.AdamWConfig(total_steps=FAMILY_STEPS,
+                                warmup_steps=FAMILY_STEPS // 10)
+    rms, fa = counted["rmsnorm"], counted["flash_attention"]
+    B = FAMILY_B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    state = (params, adamw.init(params))
+    del params
+    step = make_train_step(cfg, opt_cfg, remat=True, donate=True)
+    batch = next(Pipeline(DataConfig(vocab=cfg.vocab, seq_len=FAMILY_S,
+                                     global_batch=B, seed=0)))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    print(f"train {arch}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+          f"AdamW fp32 moments, remat, B{B} S{FAMILY_S}, one fixed batch,"
+          f" {FAMILY_STEPS} steps [{card}]")
+    reset_launches(counted)
+    losses, times = [], []
+    for i in range(1, FAMILY_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = step(state[0], state[1], batch)
+        loss = new[2]["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorm = new[2]["grad_norm"].item()
+        state = new[:2]
+        del new
+        if i == 1:
+            bad = [n for n, m in enumerate(leaves(state[1].m))
+                   if not bool(torch.isfinite(m).all())
+                   or not bool((m != 0).any())]
+            if bad or not math.isfinite(gnorm) or gnorm == 0:
+                raise AssertionError(
+                    f"{arch} step 1: gradient leaves {bad} of "
+                    f"{len(leaves(state[1].m))} not finite or all "
+                    f"zero (norm {gnorm})")
+        print(f"train {arch} step {i}: loss {loss:.4f}, grad norm "
+              f"{gnorm:.4f}, {times[-1] * 1e3:.1f} ms, "
+              f"{B * FAMILY_S / times[-1]:.0f} tokens/s [{card}]")
+    fwd = read_launches(counted)
+    bwd = {n: getattr(m, "bwd_launches", 0) for n, m in counted.items()}
+    got_routes = _routes_now(counted)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want_fwd, want_bwd, want_fr, want_br = family_expect(
+        torch, cfg, rms, fa, FAMILY_STEPS)
+    want_bwd = {k: v for k, v in want_bwd.items() if k != "matmul"}
+    bwd = {k: bwd[k] for k in want_bwd}
+    wrong = []
+    if fwd != want_fwd:
+        wrong.append(f"forward {fwd}, want {want_fwd}")
+    if bwd != want_bwd:
+        wrong.append(f"backward {bwd}, want {want_bwd}")
+    for name in want_fr:
+        got_f = {r: n for r, n in got_routes[name][0].items() if n}
+        got_b = {r: n for r, n in got_routes[name][1].items() if n}
+        if got_f != want_fr[name] or got_b != want_br[name]:
+            wrong.append(f"{name} routes forward {got_f} backward {got_b}, "
+                         f"want {want_fr[name]} and {want_br[name]}")
+    print(f"train {arch} launches over {FAMILY_STEPS} steps: forward {fwd}, "
+          f"backward {bwd}; by route "
+          f"{ {n: got_routes[n] for n in want_fr} }")
+    if wrong:
+        raise AssertionError(f"train {arch} launches: " + "; ".join(wrong))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch} loss not finite or not falling:"
+                             f" {losses}")
+    busy, kernels, top = _device_busy_s(torch, lambda: step(
+        state[0], state[1], batch))
+    wall = min(times[1:])
+    tokens = B * FAMILY_S
+    summary = {"arch": arch, "card": card, "batch": B, "seq": FAMILY_S,
+               "params": n_params, "losses": losses,
+               "step_ms": [t * 1e3 for t in times],
+               "tokens_per_s": [tokens / t for t in times],
+               "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+               "peak_gb": peak, "kernels": kernels, "top_ms": top}
+    print(f"train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+          f"memory {peak:.2f} GB; profiled step: {kernels} kernels, device "
+          f"busy {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f} (of "
+          f"the fastest unprofiled step {wall * 1e3:.3f} ms, "
+          f"{tokens / wall:.0f} tokens/s) [{card}]; top kernels (ms) {top}")
+    print(json.dumps({"train_family": summary}))
+    state = batch = step = None
+    torch.cuda.empty_cache()
+    return B, fwd, bwd, {n: got_routes[n][1] for n in want_fr}, summary
+
+
+def phase_families(torch, dev, card, counted, sweep):
+    """(j) Training the recurrent, hybrid and MoE families on the card:
+    K4's, K5's and K6's backward kernels held and timed, a full-width check
+    of each family against the CPU plain path (and bitwise repeats), then
+    each family trained at full width and depth.  Returns ({arch:
+    (batch, forward launches, backward launches, backward launches by
+    route)}, the backward kernels' rows)."""
+    t0 = time.perf_counter()
+    entries = family_backward_rows(torch, dev, counted["wkv6"],
+                                   counted["rglru"],
+                                   counted["grouped_matmul"], sweep)
+    print(f"phase j backward kernels: {time.perf_counter() - t0:.2f} s")
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        family_check(torch, dev, card, arch, counted)
+        print(f"phase j check {arch}: {time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        runs[arch] = family_train(torch, dev, card, arch, counted)[:4]
+        print(f"phase j train {arch}: {time.perf_counter() - t0:.2f} s")
+    return runs, entries
 
 
 def _leaves(tree):

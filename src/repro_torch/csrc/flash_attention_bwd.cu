@@ -91,8 +91,8 @@
 // TFLOP/s, a quarter of the bf16 peak or less as the forward reached, that
 // is 0.25-0.5 ms a call (the SIMT kernels: 4.48 ms).
 //
-// "simt", every other call (fp32, whose contract allows no TF32; Dh 16,
-// 32 and 80): plain fp32 FMAs.  256 threads a block.  Tiles live in shared
+// "simt", every other call (fp32, whose contract allows no TF32; Dh 8,
+// 12, 16, 32 and 80): plain fp32 FMAs.  256 threads a block.  Tiles live in shared
 // memory as fp32 rows of Dh + 1 floats (an odd stride: reading one column
 // down 16 rows meets 16 banks); a score tile (BT x BT) gives each thread a
 // (BT/16) x (BT/16) patch of rows ti + 16a, columns tj + 16b, the 16
@@ -587,6 +587,8 @@ int launch(int stage, const void* q, const void* k, const void* v,
   // bf16 at Dh 64, 128 and 256 takes the wgmma route: no SIMT instance
   constexpr bool F32 = std::is_same<T, float>::value;
   switch (Dh) {
+    case 8: return launch_dh<T, 8>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
+    case 12: return launch_dh<T, 12>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
     case 16: return launch_dh<T, 16>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
     case 32: return launch_dh<T, 32>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s);
     case 64: if constexpr (F32) return launch_dh<T, 64>(stage, q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, causal, window, scale, s); break;
@@ -1303,10 +1305,10 @@ int launch(int stage, const void* q, const void* k, const void* v,
 // aligned).  `stage` is 0 (stats: writes lse and delta), 1 (dK,
 // dV: reads lse and delta) or 2 (dQ: reads lse and delta); pointers a
 // stage does not use may be null.  window < 0 means no window; causal is
-// 0 or 1; Dh is 16, 32, 64, 80, 128 or 256 (bf16 on the SIMT entry: 16,
-// 32 or 80; on the wgmma entry: 64, 128 or 256).  Each returns
-// cudaGetLastError() after its launch, or the error that kept it from
-// launching.
+// 0 or 1; Dh is 8, 12, 16, 32, 64, 80, 128 or 256 (bf16 on the SIMT
+// entry: 8, 12, 16, 32 or 80; on the wgmma entry: 64, 128 or 256).  Each
+// returns cudaGetLastError() after its launch, or the error that kept it
+// from launching.
 extern "C" int repro_flash_attention_bwd_f32(
     int stage, const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,

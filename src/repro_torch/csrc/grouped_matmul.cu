@@ -49,6 +49,17 @@
 // their (expert, row, column) strides; the ragged edges of C, D and F are
 // masked.
 //
+// The backward (kernels/grouped_matmul/grouped_matmul.py,
+// grouped_matmul_bwd): dx = dy w^T and dw = x^T dy take the same kernel
+// with x, w and dy read in place, no transposed copy (at
+// granite-moe-3b-a800m's training shapes a transposed copy of x or w costs
+// more than the product it feeds): dx reads w as
+// a K-major A (its D the rows, its F the K), dw reads x as an MN-major B
+// (its C the K, its D the columns; tiles a multiple of 64 columns, whole
+// 64-column atoms LBO apart, as flash attention's P.V reads V).  Every
+// other backward (fp32, widths no multiple of 8) takes the SIMT kernel on
+// the transposed views.
+//
 // Each output is one accumulation in a fixed order on both routes: no
 // split-K and no atomics, so the result is deterministic.
 
@@ -239,24 +250,36 @@ struct Cfg {
 };
 
 // acc[.. N/2) += A (64 x 16) * B (16 x N), N split into the widths the
-// instruction has (256, 128, ..., 8); the B rows of a part start OFF rows
-// (OFF * 128 bytes, whole 1024-byte swizzle atoms) further on
-template <int N, int OFF = 0>
+// instruction has (256, 128, ..., 8).  TA: A MN-major (the forward's w);
+// TB: B MN-major (x read in place by the backward's dw, N a multiple of
+// 64).  A part's B starts OFF further on: OFF rows of 128 bytes (K-major
+// B, whole 1024-byte swizzle atoms), or OFF / 64 atoms of 64 K rows x 64
+// N (MN-major B)
+template <int N, int TA, int TB, int OFF = 0>
 __device__ __forceinline__ void mma_k16(float* acc, uint64_t da,
                                         uint64_t db) {
   constexpr int P = N >= 256 ? 256 : N >= 128 ? 128 : N >= 64 ? 64
                   : N >= 32 ? 32 : N >= 16 ? 16 : 8;
-  hopper::wgmma_bf16<P, 1, 0>(acc + OFF / 2, da, db + (OFF * 128 >> 4));
-  if constexpr (N > P) mma_k16<N - P, OFF + P>(acc, da, db);
+  static_assert(!TB || P % 64 == 0, "MN-major B parts are whole atoms");
+  constexpr int SKIP = TB ? OFF / 64 * A_BYTES : OFF * 128;
+  hopper::wgmma_bf16<P, TA, TB>(acc + OFF / 2, da, db + (SKIP >> 4));
+  if constexpr (N > P) mma_k16<N - P, TA, TB, OFF + P>(acc, da, db);
 }
 
-// tw: w (E,D,F) as boxes of 64 F x 64 D; tx: x (E,C,D) as boxes of 64 D x
-// N C.  Block (F tile, C tile, expert).
-template <int N>
+// out (E, C, F) = the product over K = D of an A of F rows and a B of C
+// columns, both bf16 in shared memory through the 128-byte swizzle.  The
+// forward (AK, BMN false): A = w (E,D,F) in boxes of 64 F x 64 D, MN-major;
+// B = x (E,C,D) in boxes of 64 D x N C, K-major.  AK: A K-major, boxes of
+// 64 K x 64 rows (the backward's dx reads w (E,D,F) in place: its D are
+// the rows, its F the K).  BMN: B MN-major, N/64 boxes of 64 columns x 64
+// K (the backward's dw reads x (E,C,D) in place: its C are the K, its D
+// the columns).  Block (F tile, C tile, expert).
+template <int N, bool AK = false, bool BMN = false>
 __global__ void __launch_bounds__(THREADS, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
                  const __grid_constant__ CUtensorMap tx,
                  __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  static_assert(!BMN || N % 64 == 0, "MN-major B tiles are whole atoms");
   using K = Cfg<N>;
   extern __shared__ uint8_t smem_raw[];
   // swizzle atoms must start 1024-aligned
@@ -288,10 +311,22 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
         hopper::mbar_wait(&empty[s], phase ^ 1);   // round 0 passes
         uint8_t* st = ring + s * K::STAGE;
         hopper::mbar_arrive_expect_tx(&full[s], K::STAGE);
-        hopper::tma_load_3d(st, &tw, &full[s], f0, kb * BK, e);
-        hopper::tma_load_3d(st + A_BYTES, &tw, &full[s], f0 + 64, kb * BK,
-                            e);
-        hopper::tma_load_3d(st + 2 * A_BYTES, &tx, &full[s], kb * BK, c0, e);
+        for (int h = 0; h < 2; ++h) {            // the two warpgroups' A
+          if constexpr (AK)
+            hopper::tma_load_3d(st + h * A_BYTES, &tw, &full[s], kb * BK,
+                                f0 + 64 * h, e);
+          else
+            hopper::tma_load_3d(st + h * A_BYTES, &tw, &full[s],
+                                f0 + 64 * h, kb * BK, e);
+        }
+        if constexpr (BMN) {
+          for (int a = 0; a < N / 64; ++a)
+            hopper::tma_load_3d(st + (2 + a) * A_BYTES, &tx, &full[s],
+                                c0 + 64 * a, kb * BK, e);
+        } else {
+          hopper::tma_load_3d(st + 2 * A_BYTES, &tx, &full[s], kb * BK, c0,
+                              e);
+        }
         if (++s == K::STAGES) {
           s = 0;
           phase ^= 1;
@@ -313,15 +348,20 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
   for (int kb = 0; kb < nk; ++kb) {
     hopper::mbar_wait(&full[s], phase);
     const uint8_t* st = ring + s * K::STAGE;
-    // w box: 64 rows of D, 128 bytes of F each; a k16 step is 16 rows
-    const uint64_t da = hopper::desc_sw128(st + cw * A_BYTES, 1024, 1024);
-    // x box: N rows of C, 128 bytes of D each; a k16 step is 32 bytes
-    const uint64_t db = hopper::desc_sw128(st + 2 * A_BYTES, 16, 1024);
+    // an MN-major box is 64 K rows of 128 bytes (64 of M or N), a k16
+    // step 16 rows; a K-major box is rows of 128 bytes of K (64 values),
+    // a k16 step 32 bytes.  MN-major B's atoms lie A_BYTES apart (LBO).
+    const uint64_t da = hopper::desc_sw128(st + cw * A_BYTES,
+                                           AK ? 16 : 1024, 1024);
+    const uint64_t db = hopper::desc_sw128(st + 2 * A_BYTES,
+                                           BMN ? A_BYTES : 16, 1024);
+    constexpr int ASTEP = AK ? 32 : 16 * 128, BSTEP = BMN ? 16 * 128 : 32;
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
 #pragma unroll
     for (int k = 0; k < BK / 16; ++k)
-      mma_k16<N>(acc, da + (k * 16 * 128 >> 4), db + (k * 32 >> 4));
+      mma_k16<N, AK ? 0 : 1, BMN ? 1 : 0>(acc, da + (k * ASTEP >> 4),
+                                          db + (k * BSTEP >> 4));
     hopper::wgmma_commit();
     // Wait for this stage's products, then give its slot back.  Keeping
     // one group in flight here (wait_group 1, releasing the stage before)
@@ -371,10 +411,11 @@ inline int tile_rows(int C) {
 
 constexpr int MAX_DEVICES = 64;
 
-template <int N>
-int launch_n(const void* x, const void* w, void* out, int E, int C, int D,
-             int F, long long sxe, long long sxc, long long swe,
-             long long swd, cudaStream_t stream) {
+// One launch of the (N, AK, BMN) instance over the tensor maps ta (A) and
+// tb (B): out (E, C, F), K = D.
+template <int N, bool AK = false, bool BMN = false>
+int run(const CUtensorMap& ta, const CUtensorMap& tb, void* out, int E,
+        int C, int D, int F, cudaStream_t stream) {
   using K = Cfg<N>;
   // once per device: setmaxnreg redistributes the block's registers, so
   // the consumers' 232 exist only if ptxas gave every thread its share of
@@ -386,16 +427,26 @@ int launch_n(const void* x, const void* w, void* out, int E, int C, int D,
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
     cudaFuncAttributes a;
-    err = cudaFuncGetAttributes(&a, gmm_wgmma_kernel<N>);
+    err = cudaFuncGetAttributes(&a, gmm_wgmma_kernel<N, AK, BMN>);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (a.numRegs * THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
       return static_cast<int>(cudaErrorInvalidConfiguration);
-    err = cudaFuncSetAttribute(gmm_wgmma_kernel<N>,
+    err = cudaFuncSetAttribute(gmm_wgmma_kernel<N, AK, BMN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                K::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
+  const dim3 grid((F + BM - 1) / BM, (C + N - 1) / N, E);
+  gmm_wgmma_kernel<N, AK, BMN><<<grid, THREADS, K::SMEM, stream>>>(
+      ta, tb, static_cast<__nv_bfloat16*>(out), C, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int launch_n(const void* x, const void* w, void* out, int E, int C, int D,
+             int F, long long sxe, long long sxc, long long swe,
+             long long swd, cudaStream_t stream) {
   // the tensor maps are encoded on the host at every call (no cache to
   // invalidate when the allocator hands out an address again)
   CUtensorMap tw, tx;
@@ -403,10 +454,7 @@ int launch_n(const void* x, const void* w, void* out, int E, int C, int D,
   if (rc != 0) return rc;
   rc = hopper::encode_bf16_3d_sw128(&tx, x, D, C, E, sxc, sxe, BK, N);
   if (rc != 0) return rc;
-  const dim3 grid((F + BM - 1) / BM, (C + N - 1) / N, E);
-  gmm_wgmma_kernel<N><<<grid, THREADS, K::SMEM, stream>>>(
-      tw, tx, static_cast<__nv_bfloat16*>(out), C, D, F);
-  return static_cast<int>(cudaGetLastError());
+  return run<N>(tw, tx, out, E, C, D, F, stream);
 }
 
 #define REPRO_GMM_CASE(n)                                              \
@@ -435,6 +483,55 @@ int launch(const void* x, const void* w, void* out, int E, int C, int D,
 }
 
 #undef REPRO_GMM_CASE
+
+// rows per tile of the backward's MN-major-friendly tiling: rows split
+// into equal tiles of at most 256, rounded up to 64 (whole B atoms)
+inline int tile_rows64(int rows) {
+  const int tiles = (rows + 255) / 256;
+  return ((rows + tiles - 1) / tiles + 63) / 64 * 64;
+}
+
+// The backward's products on contiguous bf16 x (E,C,D), w (E,D,F) and dy
+// (E,C,F), read in place (no transposed copy): which 0, dx (E,C,D) = dy
+// w^T, A = w K-major (its D the rows, its F the K), B = dy K-major; which
+// 1, dw (E,D,F) = x^T dy, A = dy MN-major (as the forward's w), B = x
+// MN-major (its C the K, its D the columns).  C, D, F > 0; D and F
+// multiples of 8.
+int launch_bwd(int which, const void* x, const void* w, const void* dy,
+               void* out, int E, int C, int D, int F, cudaStream_t s) {
+  const long long CF = static_cast<long long>(C) * F;
+  CUtensorMap ta, tb;
+  int rc;
+  if (which == 0) {
+    const int n = tile_rows64(C);
+    rc = hopper::encode_bf16_3d_sw128(&ta, w, F, D, E, F,
+                                      static_cast<long long>(D) * F, BK, 64);
+    if (rc == 0)
+      rc = hopper::encode_bf16_3d_sw128(&tb, dy, F, C, E, F, CF, BK, n);
+    if (rc != 0) return rc;
+    switch (n) {
+      case 64: return run<64, true, false>(ta, tb, out, E, C, F, D, s);
+      case 128: return run<128, true, false>(ta, tb, out, E, C, F, D, s);
+      case 192: return run<192, true, false>(ta, tb, out, E, C, F, D, s);
+      case 256: return run<256, true, false>(ta, tb, out, E, C, F, D, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (which != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = tile_rows64(D);
+  rc = hopper::encode_bf16_3d_sw128(&ta, dy, F, C, E, F, CF, 64, BK);
+  if (rc == 0)
+    rc = hopper::encode_bf16_3d_sw128(&tb, x, D, C, E, D,
+                                      static_cast<long long>(C) * D, 64, BK);
+  if (rc != 0) return rc;
+  switch (n) {
+    case 64: return run<64, false, true>(ta, tb, out, E, D, C, F, s);
+    case 128: return run<128, false, true>(ta, tb, out, E, D, C, F, s);
+    case 192: return run<192, false, true>(ta, tb, out, E, D, C, F, s);
+    case 256: return run<256, false, true>(ta, tb, out, E, D, C, F, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace wg
 
@@ -471,4 +568,19 @@ extern "C" int repro_grouped_matmul_bf16_wgmma(
     long long swd, long long swf, void* stream) {
   if (sxd != 1 || swf != 1) return static_cast<int>(cudaErrorInvalidValue);
   return wg::launch(x, w, out, E, C, D, F, sxe, sxc, swe, swd, stream);
+}
+
+// The backward's products on the tensor cores (bf16, x, w, dy contiguous
+// and 16-byte aligned, C, D, F > 0, D and F multiples of 8), reading the
+// operands in place: which 0 writes dx (E,C,D) = dy w^T, which 1 dw
+// (E,D,F) = x^T dy, into a contiguous ``out``.
+extern "C" int repro_grouped_matmul_bwd_bf16_wgmma(int which, const void* x,
+                                                   const void* w,
+                                                   const void* dy, void* out,
+                                                   int E, int C, int D, int F,
+                                                   void* stream) {
+  if (C <= 0 || D <= 0 || F <= 0 || D % 8 != 0 || F % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wg::launch_bwd(which, x, w, dy, out, E, C, D, F,
+                        static_cast<cudaStream_t>(stream));
 }

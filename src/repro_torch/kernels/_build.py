@@ -86,12 +86,20 @@ SIGNATURES = {
                        _I, ctypes.POINTER(_LL), _I, _P],
     "repro_wkv6_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, ctypes.POINTER(_LL), _I, _P],
+    # stage, r, k, v, w, dy, u, ds, checkpoints, dr, dk, dv, dw, du's
+    # partials, du, B, T, H, D, blocks a head, threads a block, stream
+    "repro_wkv6_bwd_f32": [_I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P],
+    "repro_wkv6_bwd_bf16": [_I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P],
     # a, b, h, h_T, B, T, D, strips, threads a block, a's (batch, time)
     # strides, b's, 16-byte copies, stream
     "repro_rglru_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                         _LL, _I, _P],
     "repro_rglru_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                          _LL, _I, _P],
+    # a, b, dh, dh_T, the fp32 h workspace, da, db, B, T, D, strips,
+    # threads a block, stream
+    "repro_rglru_bwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
+    "repro_rglru_bwd_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
     # x, w, out, E, C, D, F, x's (expert, row, column) strides, w's, stream
     "repro_grouped_matmul_f32": [_P, _P, _P, _I, _I, _I, _I,
                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],
@@ -99,6 +107,9 @@ SIGNATURES = {
                                   _LL, _LL, _LL, _LL, _LL, _LL, _P],
     "repro_grouped_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I,
                                         _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    # which (0 dx, 1 dw), x, w, dy, out, E, C, D, F, stream
+    "repro_grouped_matmul_bwd_bf16_wgmma": [_I, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _P],
 }
 
 _lock = threading.Lock()
@@ -225,6 +236,15 @@ def tma_readable(t) -> bool:
     s = t.stride()
     return (s[-1] == 1 and all(x > 0 and x % 8 == 0 for x in s[:-1])
             and t.data_ptr() % 16 == 0)
+
+
+def dense(t):
+    """``t`` contiguous with a 16-byte aligned base: ``t`` itself, or a
+    copy.  What the backward kernels read: plain row-major tensors, 16-byte
+    vectors and TMA boxes anywhere in them."""
+    import torch
+    return (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format))
 
 
 def refuse_grad(what: str, *tensors) -> None:

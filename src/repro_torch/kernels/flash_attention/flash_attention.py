@@ -39,7 +39,7 @@ _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
 HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dh
 WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernels' Dh
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # the backward kernels' Dh
+BWD_HEAD_DIMS = HEAD_DIMS                       # the backward kernels' Dh
 _BWD_ENTRY = {("simt", torch.float32): "repro_flash_attention_bwd_f32",
               ("simt", torch.bfloat16): "repro_flash_attention_bwd_bf16",
               ("wgmma", torch.bfloat16):
@@ -96,7 +96,7 @@ def route_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernels that a CUDA call of :func:`flash_attention_bwd` on these
     operands launches: ``"wgmma"`` for bf16 q/k/v with Dh 64, 128 or 256,
     ``"simt"`` for everything else (fp32, whose contract allows no TF32,
-    and Dh 16, 32 and 80).  The wrapper hands the kernels contiguous,
+    and Dh 8, 12, 16, 32 and 80).  The wrapper hands the kernels contiguous,
     16-byte aligned copies, so strides never matter.  Pure: reads only
     dtypes and shapes, so it answers for meta and CPU tensors too."""
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16

@@ -6,17 +6,19 @@ CUDA tensors launch the hand-written kernel in ``csrc/rglru_scan.cu``
 (any T, any D, a and b read through their strides), on the grid
 :func:`grid` gives (the C side launches that grid and refuses one its
 instance cannot run); CPU tensors run
-:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`.
+:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`.  Under grad the CUDA
+call is an autograd node whose backward is :func:`rglru_bwd`, one launch
+of ``csrc/rglru_scan_bwd.cu`` on :func:`grid_bwd`'s grid.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 
 _ENTRY = {torch.float32: "repro_rglru_f32",
           torch.bfloat16: "repro_rglru_bf16"}
@@ -24,8 +26,11 @@ STRIP = 16                 # channels a block walks (csrc/rglru_scan.cu's
 #                            one instance): D 2560 makes 160 blocks
 THREADS = 128              # a block: one chain warp, three that move data
 _MAX_GRID = 65535          # gridDim.y limit (batch)
+_BWD_ENTRY = {torch.float32: "repro_rglru_bwd_f32",
+              torch.bfloat16: "repro_rglru_bwd_bf16"}
 
 launches = 0               # kernel launches since the last reset
+bwd_launches = 0           # the backward's launches (one a call)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -53,6 +58,13 @@ def grid(shape, dtype: torch.dtype):
         raise TypeError(f"rglru takes fp32 or bf16, got {dtype}")
     B, _, D = shape
     return (-(-D // STRIP), B), THREADS
+
+
+def grid_bwd(shape, dtype: torch.dtype):
+    """((strips, batch), threads a block) of the backward's launch: the
+    forward's strips (:func:`grid`), a lane a channel."""
+    (strips, B), _ = grid(shape, dtype)
+    return (strips, B), STRIP
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -94,9 +106,67 @@ def rglru(a: torch.Tensor, b: torch.Tensor
         return rglru_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no rglru kernel for device {a.device}")
-    _build.refuse_grad("rglru", a, b)
     B = a.shape[0]
     if B > _MAX_GRID:
         raise ValueError(f"B={B} exceeds the grid limit {_MAX_GRID}")
     a, b = (t if t.stride(-1) == 1 else t.contiguous() for t in (a, b))
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _RGLRU.apply(a, b)
     return _launch(a, b)
+
+
+class _RGLRU(torch.autograd.Function):
+    """The CUDA kernel as an autograd node: forward by the forward kernel
+    (the same launch as without grad), backward by :func:`rglru_bwd`; an
+    unused output's gradient (often h_T's) comes as None."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b)
+        return _launch(a, b)
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        return rglru_bwd(*ctx.saved_tensors, dh, dh_last)
+
+
+def rglru_bwd(a: torch.Tensor, b: torch.Tensor,
+              dh: Optional[torch.Tensor] = None,
+              dh_last: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) of :func:`rglru` for the gradients dh of h and dh_last of
+    h_T (None: zeros), in a's dtype.  CUDA tensors launch
+    ``csrc/rglru_scan_bwd.cu`` (h recomputed in fp32, then the reverse
+    scan), two calls giving the same bits; CPU tensors run
+    :func:`~repro_torch.kernels.rglru_scan.ref.rglru_bwd_ref`."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return rglru_bwd_ref(a, b, dh, dh_last)
+    if a.device.type != "cuda":
+        raise ValueError(f"no rglru backward kernel for device {a.device}")
+    B, T, D = a.shape
+    if B > _MAX_GRID:
+        raise ValueError(f"B={B} exceeds the grid limit {_MAX_GRID}")
+    dev = a.device
+    dh = (torch.zeros(a.shape, dtype=a.dtype, device=dev) if dh is None
+          else dh.to(a.dtype))
+    dh_last = (torch.zeros((B, D), dtype=torch.float32, device=dev)
+               if dh_last is None else dh_last.float())
+    a, b, dh, dh_last = map(_build.dense, (a, b, dh, dh_last))
+    da, db = (torch.empty(a.shape, dtype=a.dtype, device=dev)
+              for _ in range(2))
+    if B * T * D == 0:
+        return da, db
+    hws = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    (strips, _), threads = grid_bwd(a.shape, a.dtype)
+    lib = _build.library()
+    global bwd_launches
+    with _build.on_device(dev.index):
+        bwd_launches += 1
+        rc = getattr(lib, _BWD_ENTRY[a.dtype])(
+            a.data_ptr(), b.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
+            hws.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, D, strips,
+            threads, _build.current_stream(dev.index))
+    _build.check(rc, "rglru backward")
+    return da, db

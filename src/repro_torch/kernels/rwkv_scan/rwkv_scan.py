@@ -7,18 +7,20 @@ steps the exact recurrence (no chunked rescaling, so any decay and any T)
 and reads r/k/v/w through their strides, on the grid :func:`grid` gives
 (the columns per block from :func:`plan`; the C side launches that grid
 and refuses one its instance cannot run); CPU tensors run
-:func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_ref`.
+:func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_ref`.  Under grad the CUDA
+call is an autograd node whose backward is :func:`wkv6_bwd`, the four
+launches of ``csrc/wkv6_bwd.cu`` on :func:`grid_bwd`'s grid.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
 
 _ENTRY = {torch.float32: "repro_wkv6_f32",
           torch.bfloat16: "repro_wkv6_bf16"}
@@ -33,8 +35,19 @@ TILE = (4, 2)              # state rows x columns a thread keeps
 COLUMN_BLOCK = {16: 16, 32: 32, 64: 24, 128: 16}
 HEAD_DIMS = tuple(COLUMN_BLOCK)     # the kernel's head-width instances
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
+# the backward (csrc/wkv6_bwd.cu): a thread keeps BWD_LINE columns (rows)
+# of one state row (column), so a line's D / BWD_LINE lanes share a warp;
+# the states are checkpointed every BWD_CHUNK steps; blocks of at most
+# BWD_MAX_THREADS threads
+BWD_LINE = 4
+BWD_CHUNK = 8
+BWD_MAX_THREADS = 128
+BWD_STAGES = ("states", "rows", "cols", "du")
+_BWD_ENTRY = {torch.float32: "repro_wkv6_bwd_f32",
+              torch.bfloat16: "repro_wkv6_bwd_bf16"}
 
 launches = 0               # kernel launches since the last reset
+bwd_launches = 0           # the backward's launches (four a call)
 
 
 def _check(r, k, v, w, u) -> None:
@@ -82,6 +95,19 @@ def grid(shape, dtype: torch.dtype):
     return (-(-D // cb), H, B), cb // TILE[1] * (D // TILE[0]) + PRODUCERS
 
 
+def grid_bwd(shape, dtype: torch.dtype):
+    """((blocks a head, heads, batch), threads a block) of the backward's
+    states, rows and cols launches for r of ``shape`` (B,T,H,D): D lines
+    of D / :data:`BWD_LINE` lanes a head, in blocks of at most
+    :data:`BWD_MAX_THREADS` threads; raises for what the kernels do not
+    take."""
+    B, _, H, D = shape
+    plan(shape, dtype)
+    per_head = D * (D // BWD_LINE)
+    threads = min(per_head, BWD_MAX_THREADS)
+    return (per_head // threads, H, B), threads
+
+
 def _vec_ok(t: torch.Tensor) -> bool:
     """16-byte copies read ``t``: last axis contiguous, the (batch, time,
     head) strides of dims longer than 1 multiples of 16 bytes, the base
@@ -125,11 +151,82 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 kernel for device {r.device}")
-    _build.refuse_grad("wkv6", r, k, v, w, u)
     B, T, H, D = r.shape
     if H > _MAX_GRID or B > _MAX_GRID:
         raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
     r, k, v, w = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (r, k, v, w))
     u = u.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return _WKV6.apply(r, k, v, w, u)
     return _launch(r, k, v, w, u)
+
+
+class _WKV6(torch.autograd.Function):
+    """The CUDA kernel as an autograd node: forward by the forward kernel
+    (the same launch as without grad), backward by :func:`wkv6_bwd`; an
+    unused output's gradient (often the final state's) comes as None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return _launch(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return wkv6_bwd(*ctx.saved_tensors, dy, ds)
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             dy: Optional[torch.Tensor] = None,
+             ds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du) of :func:`wkv6` for the gradients dy of y and
+    ds of the final state (None: zeros): dr, dk, dv, dw in r's dtype, du
+    in u's.  CUDA tensors launch ``csrc/wkv6_bwd.cu``'s four kernels
+    (:data:`BWD_STAGES`: the states checkpointed every :data:`BWD_CHUNK`
+    steps, then dr/dk/dw by rows, dv by columns, du's batch sum), two
+    calls giving the same bits; CPU tensors run
+    :func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_bwd_ref`."""
+    _check(r, k, v, w, u)
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, w, u, dy, ds)
+    if r.device.type != "cuda":
+        raise ValueError(f"no wkv6 backward kernel for device {r.device}")
+    B, T, H, D = r.shape
+    if H > _MAX_GRID or B > _MAX_GRID:
+        raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")
+    dev = r.device
+    dy = (torch.zeros(r.shape, dtype=r.dtype, device=dev) if dy is None
+          else dy.to(r.dtype))
+    ds = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev)
+          if ds is None else ds.float())
+    r, k, v, w, dy, ds = map(_build.dense, (r, k, v, w, dy, ds))
+    uf = _build.dense(u.float())
+    dr, dk, dv, dw = (torch.empty(r.shape, dtype=r.dtype, device=dev)
+                      for _ in range(4))
+    du = torch.empty((H, D), dtype=torch.float32, device=dev)
+    if B * T * H == 0:
+        for g in (dr, dk, dv, dw, du):
+            g.zero_()
+        return dr, dk, dv, dw, du.to(u.dtype)
+    ck = torch.empty((B, H, -(-T // BWD_CHUNK), D, D), dtype=torch.float32,
+                     device=dev)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    (blocks, _, _), threads = grid_bwd(r.shape, r.dtype)
+    entry = getattr(_build.library(), _BWD_ENTRY[r.dtype])
+    global bwd_launches
+    with _build.on_device(dev.index):
+        stream = _build.current_stream(dev.index)
+        for st, name in enumerate(BWD_STAGES):
+            bwd_launches += 1
+            rc = entry(st, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), dy.data_ptr(), uf.data_ptr(),
+                       ds.data_ptr(), ck.data_ptr(), dr.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                       du_part.data_ptr(), du.data_ptr(), B, T, H, D,
+                       blocks, threads, stream)
+            _build.check(rc, f"wkv6 backward ({name})")
+    return dr, dk, dv, dw, du.to(u.dtype)

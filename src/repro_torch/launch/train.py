@@ -9,7 +9,9 @@ and no mesh: the JAX launcher's ``meshplan.plan_model`` and
 ``tree_shardings`` wait for the mesh planner's port (the pod-tooling item
 of the roadmap).  Runs on ``cuda`` unless the caller passes
 ``device="cpu"``; ``--full`` takes the config's published widths and
-depth (internlm2-1.8b at full size fits one H100 with its AdamW state),
+depth (internlm2-1.8b, rwkv6-3b, recurrentgemma-2b and
+granite-moe-3b-a800m at full size fit one H100 with their AdamW state;
+olmoe-1b-7b and the larger dense configs need the mesh),
 the default its smoke size.  Weights can also come from the JAX package
 (``core/weights.py:tree_from_jax``), which the tests do.
 

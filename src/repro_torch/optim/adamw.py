@@ -71,6 +71,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+# elements of a donated leaf updated at once: a larger leaf is walked in
+# slices along its first axis, which bounds the update's fp32 temporaries
+# (granite-moe-3b-a800m's stacked experts, 32 x 40 x 1536 x 512 = 1.0 B
+# elements, would need ~4 GB for each)
+DONATE_SLICE = 1 << 26
+
+
+def _slices(t: torch.Tensor, limit: int):
+    """Indices that cut ``t`` along its first axis into pieces of at most
+    ``limit`` elements (whole rows; a 0-d tensor, or one that fits, is
+    one piece)."""
+    if t.dim() == 0 or t.numel() <= limit:
+        return [...]
+    rows = max(1, limit // max(1, t.numel() // t.shape[0]))
+    return [slice(a, a + rows) for a in range(0, t.shape[0], rows)]
+
+
 def update(cfg: AdamWConfig, state: AdamWState, grads, params,
            donate: bool = False
            ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
@@ -78,7 +95,10 @@ def update(cfg: AdamWConfig, state: AdamWState, grads, params,
     into ``params``, ``state.m`` and ``state.v`` leaf by leaf, and those
     trees are returned (what the JAX launcher gets from
     ``jax.jit(..., donate_argnums=(0, 1))``): the step then holds one set
-    of params and moments and one leaf's temporaries, not two sets."""
+    of params and moments and the temporaries of one leaf, or of one
+    slice of at most :data:`DONATE_SLICE` elements of a larger leaf (the
+    update is elementwise, so the slices give the whole leaf's bits), not
+    two sets."""
     step = state.step + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-9), max=1.0)
@@ -104,12 +124,15 @@ def update(cfg: AdamWConfig, state: AdamWState, grads, params,
     out = []
     for leaf in zip(leaves(params), leaves(grads), leaves(state.m),
                     leaves(state.v)):
-        new = upd(*leaf)
-        if donate:
-            for old, value in zip((leaf[0], leaf[2], leaf[3]), new):
+        if not donate:
+            out.append(upd(*leaf))
+            continue
+        p, _, m, v = leaf
+        for at in _slices(p, DONATE_SLICE):
+            new = upd(*(t[at] for t in leaf))
+            for old, value in zip((p[at], m[at], v[at]), new):
                 old.copy_(value)
-            new = (leaf[0], leaf[2], leaf[3])
-        out.append(new)
+        out.append((p, m, v))
     new_params, new_m, new_v = (
         unflatten(like, [o[i] for o in out])
         for i, like in enumerate((params, state.m, state.v)))

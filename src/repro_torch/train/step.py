@@ -7,7 +7,8 @@ as they are unless asked to take them over (``donate``).  Gradients
 come from ``torch.autograd.grad`` over the params' leaves (detached
 views of their storage that require grad, so the caller's tensors are
 never marked), through the hand-written backward
-kernels of RMSNorm and flash attention on the card.  Microbatching
+kernels on the card (RMSNorm, flash attention, WKV6, the RG-LRU scan and
+the grouped matmul).  Microbatching
 accumulates fp32 grads over ``microbatches`` sequential chunks of the
 batch in a Python loop (the JAX package's ``lax.scan``).  One device:
 ``accum_specs`` (the ZeRO-2 accumulator shardings) waits for the mesh

@@ -40,3 +40,19 @@ def test_library_path_follows_a_new_header(csrc):
     before = _build.library_path()
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path() != before
+
+
+def test_every_entry_point_is_bound_with_its_arity():
+    """Every C entry point of ``csrc/*.cu`` (``extern "C" int``) has a
+    signature in ``_build.SIGNATURES`` with its number of arguments, and
+    every signature names an entry point of the sources (a missing or
+    extra argument would shift every pointer after it)."""
+    import re
+    entries = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            entries[name] = len([p for p in params.split(",") if p.strip()])
+    assert entries == {name: len(types)
+                       for name, types in _build.SIGNATURES.items()}

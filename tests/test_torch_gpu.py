@@ -16,15 +16,16 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul as gmm
-from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+from repro_torch.kernels.grouped_matmul.ref import (grouped_matmul_bwd_ref,
+                                                    grouped_matmul_ref)
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rglru_scan import rglru_scan as scan
-from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rwkv_scan import rwkv_scan as wkv
-from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
+from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -1046,6 +1047,10 @@ FA_BWD_CASES = [
     (1, 50, 2, 1, 16, True, None, "bfloat16", "simt"),
     (1, 96, 8, 1, 32, True, None, "bfloat16", "simt"),
     (1, 80, 4, 2, 32, True, 30, "float32", "simt"),
+    (2, 64, 3, 1, 12, True, None, "float32", "simt"),
+    (1, 70, 4, 2, 12, True, 20, "bfloat16", "simt"),
+    (1, 45, 2, 2, 8, False, None, "float32", "simt"),
+    (2, 64, 4, 1, 8, True, None, "bfloat16", "simt"),
     (1, 65, 2, 2, 64, False, None, "bfloat16", "wgmma"),
     (2, 333, 4, 2, 128, True, 100, "bfloat16", "wgmma"),
     (1, 333, 16, 2, 64, True, 100, "bfloat16", "wgmma"),
@@ -1124,11 +1129,15 @@ def test_flash_attention_autograd_on_card(cuda):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """K1, K4, K5 and K6 have no backward kernel yet: their CUDA wrappers
-    refuse an operand that requires grad while grad is enabled, and launch
-    under no_grad."""
+    """K1 has no backward kernel: its CUDA wrapper refuses an operand that
+    requires grad while grad is enabled, and launches under no_grad.  K4,
+    K5 and K6, which have one, launch it instead of raising."""
     a = _randn((8, 64), "float32", cuda, 50).requires_grad_(True)
     b = _randn((64, 16), "float32", cuda, 51)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        mm.matmul(a, b)
+    with torch.no_grad():
+        mm.matmul(a, b)
     r, k, v, w = (_randn((1, 16, 2, 32), "float32", cuda, 52 + i)
                   for i in range(4))
     w = torch.sigmoid(w)
@@ -1137,15 +1146,14 @@ def test_kernels_without_backward_raise_under_grad(cuda):
     gb = _randn((1, 16, 64), "float32", cuda, 58)
     x = _randn((2, 8, 64), "float32", cuda, 59)
     wg = _randn((2, 64, 16), "float32", cuda, 60)
-    calls = [(lambda: mm.matmul(a, b)),
-             (lambda: wkv.wkv6(r.requires_grad_(True), k, v, w, u)),
-             (lambda: scan.rglru(ga, gb.requires_grad_(True))),
-             (lambda: gmm.grouped_matmul(x, wg.requires_grad_(True)))]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="no backward kernel"):
-            call()
-        with torch.no_grad():
-            call()
+    for mod, call, n in (
+            (wkv, lambda: wkv.wkv6(r.requires_grad_(True), k, v, w, u)[0], 4),
+            (scan, lambda: scan.rglru(ga, gb.requires_grad_(True))[0], 1),
+            (gmm, lambda: gmm.grouped_matmul(x, wg.requires_grad_(True)), 2)):
+        before = mod.bwd_launches
+        out = call()
+        out.sum().backward()
+        assert mod.bwd_launches == before + n
     torch.cuda.synchronize()
 
 
@@ -1215,3 +1223,200 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert rel <= 1e-3, f"leaf {n}: relative L2 {rel}"
         assert torch.isfinite(a).all() and a.abs().sum() > 0, n
     assert len(g_d) == len(leaves(cpu))
+
+
+# ------------------------------------------- K4, K5, K6 backward kernels
+
+def _wkv_bwd_operands(B, T, H, D, dtype, device, seed, lo=0.01):
+    rng = np.random.default_rng(seed)
+    r, k, v, dy = (_randn((B, T, H, D), dtype, device, seed + i)
+                   for i in range(4))
+    w = torch.from_numpy(rng.uniform(lo, 1.0, (B, T, H, D))
+                         .astype(np.float32)).to(device, DTYPES[dtype])
+    u = _randn((H, D), "float32", device, seed + 5) * 0.3
+    ds = _randn((B, H, D, D), "float32", device, seed + 6)
+    return r, k, v, w, u, dy, ds
+
+
+def _held(got, want, dtype, what):
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, n)
+        assert _rel_err(g, w) <= BWD_TOL[dtype], (what, n, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", sorted(wkv.COLUMN_BLOCK))
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 77])
+def test_wkv6_bwd_kernel_matches_plain(cuda, D, T, dtype):
+    """Every head width the forward compiles, T at 1, the checkpoint
+    interval and its neighbours and a ragged 77, decays down to 0.01 and a
+    nonzero final-state gradient: the four launches against the plain
+    version, two calls bitwise equal."""
+    args = _wkv_bwd_operands(2, T, 3, D, dtype, cuda, 70 + D + T)
+    before = wkv.bwd_launches
+    got = wkv.wkv6_bwd(*args)
+    again = wkv.wkv6_bwd(*args)
+    assert wkv.bwd_launches == before + 2 * len(wkv.BWD_STAGES)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held(got, wkv6_bwd_ref(*args), dtype, f"wkv6_bwd D{D} T{T}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T", [(1, 1000), (4, 1024)])
+def test_wkv6_bwd_at_rwkv6_3b(cuda, B, T, dtype):
+    args = _wkv_bwd_operands(B, T, 40, 64, dtype, cuda, 80 + B)
+    got = wkv.wkv6_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, wkv.wkv6_bwd(*args)))
+    _held(got, wkv6_bwd_ref(*args), dtype, f"wkv6_bwd B{B} T{T}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_autograd_on_card(cuda, dtype):
+    """Under grad: the forward launch gives the no-grad call's bits, the
+    final state's unused gradient is taken as zeros, and the backward is
+    the kernels' (wkv6_bwd's bits); views of a fused projection work."""
+    r, k, v, w, u, dy, _ = _wkv_bwd_operands(2, 45, 4, 64, dtype, cuda, 90)
+    fused = torch.cat([r, k, v, w], dim=-1)          # (B, T, H, 4D) views
+    views = [fused[..., i * 64:(i + 1) * 64] for i in range(4)]
+    with torch.no_grad():
+        y0, s0 = wkv.wkv6(*views, u)
+    live = fused.clone().requires_grad_(True)
+    lu = u.clone().requires_grad_(True)
+    lv = [live[..., i * 64:(i + 1) * 64] for i in range(4)]
+    f, b = wkv.launches, wkv.bwd_launches
+    y1, s1 = wkv.wkv6(*lv, lu)
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    assert wkv.launches == f + 1
+    gf, gu = torch.autograd.grad(y1, (live, lu), dy)
+    assert wkv.bwd_launches == b + len(wkv.BWD_STAGES)
+    want = wkv.wkv6_bwd(*(t.contiguous() for t in views), u, dy, None)
+    for i in range(4):
+        assert torch.equal(gf[..., i * 64:(i + 1) * 64], want[i])
+    assert torch.equal(gu, want[4])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,D", [(4, 1024, 2560), (1, 1000, 2560),
+                                   (2, 77, 2568), (3, 1, 16), (1, 9, 5)])
+def test_rglru_bwd_kernel_matches_plain(cuda, B, T, D, dtype):
+    """Every strip (ragged D) and T around the 8-step load batch: against
+    the plain version (the same fp32 h chain: bitwise), two calls
+    bitwise."""
+    a = torch.sigmoid(_randn((B, T, D), dtype, cuda, 100 + T))
+    b, dh = (_randn((B, T, D), dtype, cuda, 101 + T + i) for i in range(2))
+    dh_last = _randn((B, D), "float32", cuda, 103 + T)
+    before = scan.bwd_launches
+    got = scan.rglru_bwd(a, b, dh, dh_last)
+    again = scan.rglru_bwd(a, b, dh, dh_last)
+    assert scan.bwd_launches == before + 2
+    want = rglru_bwd_ref(a, b, dh, dh_last)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_autograd_on_card(cuda, dtype):
+    a0 = torch.sigmoid(_randn((2, 300, 2560), dtype, cuda, 110))
+    b0 = _randn((2, 300, 2560), dtype, cuda, 111)
+    dh = _randn((2, 300, 2560), dtype, cuda, 112)
+    with torch.no_grad():
+        h0, l0 = scan.rglru(a0, b0)
+    a, b = (t.clone().requires_grad_(True) for t in (a0, b0))
+    h1, l1 = scan.rglru(a, b)
+    assert torch.equal(h0, h1) and torch.equal(l0, l1)
+    before = scan.bwd_launches
+    got = torch.autograd.grad(h1, (a, b), dh)
+    assert scan.bwd_launches == before + 1
+    for g, w in zip(got, scan.rglru_bwd(a0, b0, dh, None)):
+        assert torch.equal(g, w)
+
+
+# granite B4 S1024 and olmoe S1000 (tiles of 256 rows); then each of the
+# backward's tensor-core instances (64, 128, 192, 256 rows a tile) for dx
+# (C rows) and dw (D rows) with ragged edges of C, D and F; then SIMT
+GMM_BWD_CASES = [
+    (40, 1056, 1536, 512), (40, 1056, 512, 1536),
+    (64, 160, 2048, 1024), (64, 160, 1024, 2048),
+    (3, 40, 48, 32), (3, 100, 96, 40), (2, 150, 160, 72), (2, 300, 200, 264),
+    (4, 17, 256, 192), (5, 16, 48, 32),
+    (3, 17, 40, 12), (4, 16, 100, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F", GMM_BWD_CASES)
+def test_grouped_matmul_bwd_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    """dx and dw against the plain version on route_bwd()'s routes, two
+    calls bitwise; bf16 with D and F multiples of 8 never runs on the SIMT
+    kernel; a strided forward operand (x a transposed view) gives the
+    same bits as a contiguous one."""
+    x = _randn((E, C, D), dtype, cuda, 120) * 0.5
+    w = _randn((E, D, F), dtype, cuda, 121) * D ** -0.5
+    dy = _randn((E, C, F), dtype, cuda, 122)
+    route = gmm.route_bwd(x, w)
+    before = dict(gmm.bwd_routes)
+    got = gmm.grouped_matmul_bwd(x, w, dy)
+    again = gmm.grouped_matmul_bwd(x, w, dy)
+    took = {r: gmm.bwd_routes[r] - n for r, n in before.items()}
+    assert took == {r: 4 * (r == route) for r in took}     # two calls
+    if dtype == "bfloat16" and D % 8 == 0 and F % 8 == 0:
+        assert route == "wgmma"
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held(got, grouped_matmul_bwd_ref(x, w, dy), dtype,
+          f"grouped_matmul_bwd ({E},{C},{D},{F})")
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert all(torch.equal(a, b) for a, b in
+               zip(gmm.grouped_matmul_bwd(xt, w, dy), got))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_autograd_on_card(cuda, dtype):
+    x0 = _randn((8, 64, 128), dtype, cuda, 130)
+    w0 = _randn((8, 128, 96), dtype, cuda, 131) * 0.1
+    dy = _randn((8, 64, 96), dtype, cuda, 132)
+    with torch.no_grad():
+        y0 = gmm.grouped_matmul(x0, w0)
+    x, w = (t.clone().requires_grad_(True) for t in (x0, w0))
+    y1 = gmm.grouped_matmul(x, w)
+    assert torch.equal(y0, y1)
+    before = gmm.bwd_launches
+    got = torch.autograd.grad(y1, (x, w), dy)
+    assert gmm.bwd_launches == before + 2
+    for g, want in zip(got, gmm.grouped_matmul_bwd(x0, w0, dy)):
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b",
+                                  "granite-moe-3b-a800m"])
+def test_family_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 remat step of each newly trained family at smoke size on
+    the card, through every forward and backward kernel, against the same
+    step on CPU tensors: the loss, every gradient (relative L2 1e-3); and
+    the card's step twice, bitwise."""
+    from repro_torch.configs import registry
+    from repro_torch.core.pytree import leaves
+    from repro_torch.models import stacking
+    from repro_torch.models.api import get_model
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    cpu = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, "cpu")
+    dev = stacking.tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    grad_fn = tstep.value_and_grad(tstep.make_loss_fn(cfg, remat=True))
+    mod = {"ssm": wkv, "hybrid": scan, "moe": gmm}[cfg.family]
+    before = mod.bwd_launches
+    (loss_d, _), g_d = grad_fn(dev, x.to(cuda), y.to(cuda))
+    assert mod.bwd_launches > before
+    (loss_d2, _), g_d2 = grad_fn(dev, x.to(cuda), y.to(cuda))
+    assert torch.equal(loss_d, loss_d2)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(g_d), leaves(g_d2)))
+    (loss_c, _), g_c = grad_fn(cpu, x, y)
+    assert abs(loss_d.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for n, (a, b) in enumerate(zip(leaves(g_d), leaves(g_c))):
+        rel = ((a.cpu() - b).norm() / b.norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, f"leaf {n}: relative L2 {rel}"

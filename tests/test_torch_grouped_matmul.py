@@ -199,3 +199,30 @@ def test_cpu_bf16_runs_the_plain_version_whatever_the_route(E, C, D, F):
     got = tgmm.grouped_matmul(tx, tw)
     assert tgmm.launches == before and tgmm.routes == routes
     assert torch.equal(got, grouped_matmul_ref(tx, tw))
+
+
+# E, C, D, F, dtype, the backward's route (both products): granite's
+# training products at B4 S1024 (C = 4 x 264), olmoe's, a ragged C, odd
+# widths, fp32
+BWD_ROUTES = [
+    (40, 1056, 1536, 512, torch.bfloat16, "wgmma"),
+    (40, 1056, 512, 1536, torch.bfloat16, "wgmma"),
+    (64, 2592, 2048, 1024, torch.bfloat16, "wgmma"),
+    (4, 17, 256, 192, torch.bfloat16, "wgmma"),
+    (40, 1056, 1536, 512, torch.float32, "simt"),
+    (40, 17, 100, 7, torch.bfloat16, "simt"),
+    (4, 16, 256, 100, torch.bfloat16, "simt"),
+    (4, 16, 100, 64, torch.bfloat16, "simt"),
+]
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,want", BWD_ROUTES)
+def test_route_bwd_by_dtype_and_widths(E, C, D, F, dtype, want):
+    """route_bwd() names the one route of both products: the tensor cores for
+    bf16 with D and F multiples of 8 (any C: the kernel reads x, w and dy
+    in place), SIMT otherwise.  Pure: shapes and dtypes (meta tensors),
+    whatever the forward operands' strides."""
+    x, w = _meta((E, C, D), dtype), _meta((E, D, F), dtype)
+    assert tgmm.route_bwd(x, w) == want
+    assert tgmm.route_bwd(_meta((E, D, C), dtype).transpose(1, 2),
+                          w) == want

@@ -149,3 +149,23 @@ def test_rglru_vector_copies_need_aligned_strides():
     ab = torch.zeros((2, 5, 2 * 384))
     assert tscan._vec_ok(ab[..., :384]) and tscan._vec_ok(ab[..., 384:])
     assert not tscan._vec_ok(torch.zeros((2, 5, 51))[..., 1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D", [(4, 1024, 2560), (1, 1000, 2560),
+                                   (2, 77, 2568), (3, 1, 5)])
+def test_rglru_bwd_grid_is_the_forward_strips(B, T, D, dtype):
+    """The backward keeps the forward's strip layout: the same (strips,
+    batch) grid, one lane a channel of a strip (csrc/rglru_scan_bwd.cu's
+    STRIP), independent of T."""
+    a = torch.empty((B, T, D), dtype=dtype, device="meta")
+    (strips, batch), threads = tscan.grid_bwd(a.shape, a.dtype)
+    assert ((strips, batch), tscan.STRIP) == (tscan.grid(a.shape,
+                                                         a.dtype)[0],
+                                              threads)
+    assert strips * threads >= D > (strips - 1) * threads
+    src = (Path(tscan.__file__).resolve().parents[2] / "csrc"
+           / "rglru_scan_bwd.cu").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert int(consts["STRIP"]) == tscan.STRIP
+    assert not re.search(r"\batomic\w*\s*\(", src)     # no atomics

@@ -102,7 +102,14 @@ def test_cross_entropy_matches_jax():
 def test_train_step_matches_jax(arch):
     """One step at smoke size in fp32 (qwen3-8b: per-head qk-norm, so
     RMSNorm's backward runs at width Dh with a gain too): the loss, every
-    gradient, every updated param and both moments."""
+    gradient, every updated param and both moments.  The other families'
+    cases are in tests/test_torch_train_step_{recurrent,moe}.py."""
+    check_train_step(arch)
+
+
+def check_train_step(arch):
+    """:func:`test_train_step_matches_jax`'s comparison for ``arch``: one
+    fp32 smoke step of both packages, with ``REPRO_USE_PALLAS`` unset."""
     cj, ct, jp, tp = _pair(arch)
     jb, tb = _batch(cj.vocab, 4, 16)
     jopt = jadamw.AdamWConfig(warmup_steps=1)
@@ -151,6 +158,36 @@ def test_donated_step_equals_pure_step(microbatches):
         for a, b, c in zip(leaves(tree), leaves(mine), leaves(want)):
             assert a is b
             torch.testing.assert_close(a, c, atol=0, rtol=0)
+
+
+def test_donated_update_in_slices_is_bitwise(monkeypatch):
+    """A donated leaf larger than ``DONATE_SLICE`` elements is updated in
+    slices along its first axis (bounding the fp32 temporaries): the same
+    bits as the whole-leaf update, for matrices (decayed), vectors and a
+    scalar, a ragged last slice included."""
+    g = torch.Generator().manual_seed(4)
+    params = {"w": torch.randn(7, 5, 3, generator=g).to(torch.bfloat16),
+              "b": torch.randn(11, generator=g), "s": torch.tensor(0.5)}
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g)
+                     .to(t.dtype), params)
+    cfg = tadamw.AdamWConfig(warmup_steps=1)
+    state = tadamw.init(params)
+    state = tadamw.AdamWState(state.step, *(
+        tree_map(lambda t: torch.rand(t.shape, generator=g), tree)
+        for tree in (state.m, state.v)))
+    want = tadamw.update(cfg, state, grads, params)
+    monkeypatch.setattr(tadamw, "DONATE_SLICE", 10)
+    assert len(tadamw._slices(params["w"], 10)) == 7
+    assert len(tadamw._slices(params["b"], 10)) == 2
+    mine = tree_map(torch.clone, params)
+    own = tadamw.AdamWState(state.step, tree_map(torch.clone, state.m),
+                            tree_map(torch.clone, state.v))
+    got = tadamw.update(cfg, own, grads, mine, donate=True)
+    for a, b in zip(leaves(got[0]) + leaves(got[1].m) + leaves(got[1].v),
+                    leaves(want[0]) + leaves(want[1].m)
+                    + leaves(want[1].v)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert all(a is b for a, b in zip(leaves(got[0]), leaves(mine)))
 
 
 def test_remat_equals_no_remat():
@@ -357,9 +394,9 @@ def test_attention_bwd_ref_row_without_keys_has_zero_grads():
 
 
 def test_refuse_grad_only_under_grad():
-    """The K1/K4/K5/K6 wrappers' guard on the card (``refuse_grad``): it
-    raises where grad is enabled and an operand requires grad, and lets
-    every other call pass."""
+    """The K1 wrapper's guard on the card (``refuse_grad``; the GEMM has no
+    backward kernel): it raises where grad is enabled and an operand
+    requires grad, and lets every other call pass."""
     a = torch.ones(2, 2, requires_grad=True)
     b = torch.ones(2, 2)
     with pytest.raises(RuntimeError, match="no backward kernel"):

@@ -240,3 +240,43 @@ def test_wkv6_vector_copies_need_aligned_strides():
     assert twkv._vec_ok(x[..., 64:128])                # a fused slice
     assert not twkv._vec_ok(torch.zeros((2, 5, 3, 65))[..., 1:])
     assert twkv.chunk(64) == 32 and twkv.chunk(128) == 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D", [(4, 1024, 40, 64), (1, 1000, 40, 64),
+                                     (2, 77, 4, 16), (2, 77, 4, 32),
+                                     (2, 77, 4, 128), (3, 1, 1, 64)])
+def test_wkv6_bwd_grid_covers_every_line(B, T, H, D, dtype):
+    """The backward's grid: D lines (state rows, or columns) of D /
+    BWD_LINE lanes a head, whole lines and whole warps a block, at most
+    BWD_MAX_THREADS threads, a line's lanes inside one warp (its sums are
+    shuffles); independent of T, and refusing what the forward refuses."""
+    (gx, gy, gz), threads = twkv.grid_bwd((B, T, H, D), dtype)
+    lanes = D // twkv.BWD_LINE
+    assert (gy, gz) == (H, B)
+    assert gx * threads == D * lanes
+    assert threads % 32 == 0 and threads % lanes == 0
+    assert threads <= twkv.BWD_MAX_THREADS and 32 % lanes == 0
+    assert lanes >= 4       # the rows kernel's lanes 0-2 store dr, dk, dw
+    assert twkv.grid_bwd((B, 5 * T + 3, H, D), dtype) == ((gx, gy, gz),
+                                                          threads)
+    with pytest.raises(ValueError):
+        twkv.grid_bwd((B, T, H, 48), dtype)
+    with pytest.raises(TypeError):
+        twkv.grid_bwd((B, T, H, D), torch.float16)
+
+
+def test_wkv6_bwd_constants_match_the_source():
+    """The wrapper's backward constants are csrc/wkv6_bwd.cu's: the lanes'
+    width, the checkpoint interval, the block cap, and one stage of the C
+    entry for each name in BWD_STAGES."""
+    src = (Path(twkv.__file__).resolve().parents[2] / "csrc"
+           / "wkv6_bwd.cu").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert int(consts["W"]) == twkv.BWD_LINE
+    assert int(consts["L"]) == twkv.BWD_CHUNK
+    assert int(consts["MAX_THREADS"]) == twkv.BWD_MAX_THREADS
+    stages = sorted(int(n) for n in re.findall(r"stage == (\d)", src))
+    assert stages + [3] == list(range(len(twkv.BWD_STAGES)))
+    assert "st == 3" in src
+    assert not re.search(r"\batomic\w*\s*\(", src)     # no atomics
