@@ -320,7 +320,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "design": BWD_DESIGN[name],
             **({"kernel_route": r["route"], "library": "torch.bmm",
                 "launches_by_route": fam_runs[arch][3][fwd_name]}
                if "route" in r else {})})
@@ -2063,25 +2063,37 @@ FAMILY_B, FAMILY_S, FAMILY_STEPS = 4, 1024, 4
 # attention layer and remat run there too
 FAMILY_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3,
                        "granite-moe-3b-a800m": 2}
-# the new backward kernels' rows: the training path's shape first (the one
-# that stands for the kernel in the kernels line), then the others; each in
-# bf16 and fp32, decays down to 0.01
-WKV_BWD_ROWS = [(4, 1024, 40, 64, "rwkv6-3b training"),
-                (1, 1000, 40, 64, "rwkv6-3b"),
-                (2, 77, 4, 16, "instance D16"), (2, 77, 4, 32, "instance D32"),
-                (2, 77, 4, 128, "instance D128")]
-RGLRU_BWD_ROWS = [(4, 1024, 2560, "recurrentgemma-2b training"),
-                  (2, 77, 2568, "ragged strip")]
-GMM_BWD_ROWS = [(40, 1056, 1536, 512, "granite-moe-3b-a800m gate/up"),
-                (40, 1056, 512, 1536, "granite-moe-3b-a800m down"),
-                # the other tensor-core instances: 64, 128, 192 rows a
-                # tile, for dx (C rows) and dw (D rows)
-                (3, 40, 48, 32, "instance N64"),
-                (3, 100, 96, 40, "instance N128"),
-                (2, 150, 160, 72, "instance N192")]
-# K4's backward: per (b, t, h) the state's recompute, G's step and four
-# contractions over the D x D state, 2 operations an element each
-WKV_BWD_OPS = 12
+# the backward kernels' rows beside the training shapes that
+# launch/time_train_bwd.py times (its ROWS, which stand for each kernel in
+# the kernels line): every other WKV6 head width, a ragged K5 strip and
+# K6's other tensor-core instances (dx's C tiles in 8-row steps, dw's D
+# tiles in 64-row steps); each row in bf16 and fp32, decays down to 0.01
+FAMILY_BWD_INSTANCES = [
+    ("wkv6_bwd", (2, 77, 4, 16), "instance D16"),
+    ("wkv6_bwd", (2, 77, 4, 32), "instance D32"),
+    ("wkv6_bwd", (2, 77, 4, 128), "instance D128"),
+    ("rglru_bwd", (2, 77, 2568), "ragged strip"),
+    ("grouped_matmul_bwd", (3, 40, 48, 32), "instances dx N40 dw N64"),
+    ("grouped_matmul_bwd", (3, 100, 96, 40), "instances dx N104 dw N128"),
+    ("grouped_matmul_bwd", (2, 150, 160, 72), "instances dx N152 dw N192")]
+# the floors of the backward kernels' redesign at the training shapes, bf16
+# (ms, NVIDIA H100 at 700 W): a row slower than its floor fails the phase
+BWD_FLOOR_MS = {("wkv6_bwd", "rwkv6-3b training"): 2.0,
+                ("wkv6_bwd", "rwkv6-3b"): 1.0,
+                ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up"): 0.26,
+                ("grouped_matmul_bwd", "granite-moe-3b-a800m down"): 0.24}
+# what each backward kernel of phase j is, for the kernels line
+BWD_DESIGN = {
+    "wkv6_bwd": "walk (forward: a cp.async ring a warp, fp32 checkpoints "
+                "every 8 steps; backward: staged chunks, 3 L partial row "
+                "sums deferred and halved together, one walk for dr, dk, "
+                "dw and the blocks' dv parts) + sums (dv, du in fixed "
+                "order)",
+    "rglru_bwd": "one launch on the forward's strips, h recomputed in fp32",
+    "grouped_matmul_bwd": "wgmma, persistent (one block an SM), one group "
+                          "in flight, dx tiles in 8-row steps, dw on a "
+                          "second stream; epilogue by stmatrix and TMA "
+                          "stores"}
 
 
 def _time_plain(torch, fn, flush) -> float:
@@ -2105,54 +2117,39 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
     fp32: two calls bitwise equal, the largest error within BWD_TOL of the
     largest |gradient|, the launches and routes; timed by phase a's method
     (cold L2, spin) beside the plain version, the bound and, for K6,
-    ``torch.bmm`` on the same two products.  Returns the rows that stand
-    for each kernel in the kernels line (the training shape, bf16)."""
-    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_bwd_ref
-    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
-    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+    ``torch.bmm`` on the same two products.  The training rows, inputs,
+    tolerance, bounds and yardstick are ``launch/time_train_bwd.py``'s.
+    Returns the rows that stand for each kernel in the kernels line (the
+    training shape, bf16)."""
+    from repro_torch.launch import time_train_bwd as ttb
     from repro_torch.launch.time_k1k2 import FLUSH_BYTES, time_ms
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    peaks = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
-    names = {torch.float32: "fp32", torch.bfloat16: "bf16"}
-    tols = {torch.float32: BWD_TOL["float32"],
-            torch.bfloat16: BWD_TOL["bfloat16"]}
+    names = {"float32": "fp32", "bfloat16": "bf16"}
+    fns = ttb.wrappers()
+    # each wrapper's launch counter and its launches a call
+    counters = {"wkv6_bwd": (lambda: wkv.bwd_launches, len(wkv.BWD_STAGES)),
+                "rglru_bwd": (lambda: scan.bwd_launches, 1),
+                "grouped_matmul_bwd": (lambda: gm.bwd_launches, 2)}
     entries = {}
 
-    def randn(*shape, dt, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev)
-                * scale).to(dt)
-
-    def check(kernel, case, dt, fn, plain, counter, want_launches):
+    def check(kernel, case, dt, fn, plain):
+        counter, per_call = counters[kernel]
         before = counter()
         got = fn()
         again = fn()
         torch.cuda.synchronize()
-        if counter() - before != 2 * want_launches:
+        if counter() - before != 2 * per_call:
             raise AssertionError(f"{kernel} {case}: {counter() - before} "
                                  f"launches for two calls, want "
-                                 f"{2 * want_launches}")
+                                 f"{2 * per_call}")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{kernel} {case} {names[dt]}: two calls "
                                  f"differ")
-        want = plain()
-        err = 0.0
-        for n, (g, w) in enumerate(zip(got, want)):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"{kernel} {case}: output {n} "
-                                     f"{g.dtype} {tuple(g.shape)}, want "
-                                     f"{w.dtype} {tuple(w.shape)}")
-            diff = (g.float() - w.float()).abs().max().item()
-            scale = w.float().abs().max().item()
-            err = max(err, diff)
-            if not diff <= tols[dt] * scale:
-                raise AssertionError(f"{kernel} {case} {names[dt]}: output "
-                                     f"{n} max abs err {diff} beyond "
-                                     f"{tols[dt]} x max |want| {scale}")
-        return err
+        return ttb.held(torch, got, plain(), dt, f"{kernel} {case}")
 
-    def row(kernel, case, dt, err, fn, plain, flops, nbytes, library=None,
-            extra=None):
+    def row(kernel, shape, case, dt, err, fn, plain, element_size,
+            library=None, extra=None):
         # the kernel and the library call in turns (kernel, library,
         # library, kernel); then the plain version
         runs, lib_runs = [], []
@@ -2164,13 +2161,15 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
         ms = sum(runs) / len(runs)
         lib_ms = sum(lib_runs) / len(lib_runs) if lib_runs else None
         plain_ms = _time_plain(torch, plain, flush)
-        b_ms, b_by = bound(flops, nbytes, peaks[dt])
+        b_ms, b_by = ttb.bound_ms(kernel, shape, dt, element_size)
+        ops = ttb.work(kernel, shape, element_size)[0]
         r = {"kernel": kernel, "case": case, "dtype": names[dt],
              "max_abs_err": err, "ms": ms, "ms_runs": runs,
              "plain_ms": plain_ms, "library_ms": lib_ms,
              "library_ms_runs": lib_runs, "bound_ms": b_ms,
              "bound_by": b_by,
-             "fp32_floor_ms": flops / FP32_FLOPS * 1e3, **(extra or {})}
+             "fp32_floor_ms": ops / ttb.PEAK_FLOPS["float32"] * 1e3,
+             **(extra or {})}
         sweep.append(r)
         lib = ("none" if lib_ms is None else
                " then ".join(f"{t:.4f}" for t in lib_runs) + " torch.bmm")
@@ -2182,72 +2181,39 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
               f"{err:.3e}, two calls bitwise equal")
         return r
 
-    for dt in (torch.bfloat16, torch.float32):
-        for B, T, H, D, what in WKV_BWD_ROWS:
-            r, k, v, dy = (randn(B, T, H, D, dt=dt) for _ in range(4))
-            w = (0.01 + 0.99 * torch.rand(B, T, H, D, generator=gen,
-                                          device=dev)).to(dt)
-            u = randn(H, D, dt=torch.float32, scale=0.3)
-            ds = randn(B, H, D, D, dt=torch.float32)
-            args = (r, k, v, w, u, dy, ds)
-            case = f"{what} B{B} T{T} H{H} D{D}"
-            err = check("wkv6_bwd", case, dt, lambda: wkv.wkv6_bwd(*args),
-                        lambda: wkv6_bwd_ref(*args),
-                        lambda: wkv.bwd_launches, len(wkv.BWD_STAGES))
-            n = B * T * H * D
-            res = row("wkv6_bwd", case, dt, err,
-                      lambda: wkv.wkv6_bwd(*args),
-                      lambda: wkv6_bwd_ref(*args),
-                      WKV_BWD_OPS * B * T * H * D * D,
-                      9 * n * r.element_size() + 4 * (B * H * D * D
-                                                      + 2 * H * D))
-            entries.setdefault("wkv6_bwd", res)
-            del r, k, v, w, u, dy, ds, args
-        for B, T, D, what in RGLRU_BWD_ROWS:
-            a = torch.rand(B, T, D, generator=gen, device=dev).to(dt)
-            b, dh = randn(B, T, D, dt=dt), randn(B, T, D, dt=dt)
-            dhT = randn(B, D, dt=torch.float32)
-            case = f"{what} B{B} T{T} D{D}"
-            err = check("rglru_bwd", case, dt,
-                        lambda: scan.rglru_bwd(a, b, dh, dhT),
-                        lambda: rglru_bwd_ref(a, b, dh, dhT),
-                        lambda: scan.bwd_launches, 1)
-            res = row("rglru_bwd", case, dt, err,
-                      lambda: scan.rglru_bwd(a, b, dh, dhT),
-                      lambda: rglru_bwd_ref(a, b, dh, dhT),
-                      5 * B * T * D,
-                      5 * B * T * D * a.element_size() + 4 * B * D)
-            entries.setdefault("rglru_bwd", res)
-            del a, b, dh, dhT
-        for E, C, D, F, what in GMM_BWD_ROWS:
-            x = randn(E, C, D, dt=dt, scale=0.5)
-            w = randn(E, D, F, dt=dt, scale=D ** -0.5)
-            dy = randn(E, C, F, dt=dt)
-            route = gm.route_bwd(x, w)
-            before = dict(gm.bwd_routes)
-            case = f"{what} ({E},{C},{D})x({E},{D},{F})"
-            err = check("grouped_matmul_bwd", case, dt,
-                        lambda: gm.grouped_matmul_bwd(x, w, dy),
-                        lambda: grouped_matmul_bwd_ref(x, w, dy),
-                        lambda: gm.bwd_launches, 2)
-            took = {k: gm.bwd_routes[k] - n for k, n in before.items()}
-            want = {r: 4 * (r == route) for r in ("wgmma", "simt")}
-            if took != want or (dt == torch.bfloat16 and route != "wgmma"):
-                raise AssertionError(f"grouped_matmul_bwd {case} "
-                                     f"{names[dt]}: routes {took}, want "
-                                     f"{want} ({route}); bf16 must take "
-                                     f"the tensor cores")
-            wt, xt = w.transpose(1, 2), x.transpose(1, 2)
-            res = row("grouped_matmul_bwd", case, dt, err,
-                      lambda: gm.grouped_matmul_bwd(x, w, dy),
-                      lambda: grouped_matmul_bwd_ref(x, w, dy),
-                      4.0 * E * C * D * F,
-                      2 * (E * C * D + E * D * F) * x.element_size()
-                      + E * C * F * x.element_size(),
-                      library=lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)),
-                      extra={"route": route})
-            entries.setdefault("grouped_matmul_bwd", res)
-            del x, w, dy, wt, xt
+    # the training rows first, one a (kernel, shape), then the instances
+    train = list(dict.fromkeys((k, shape, what)
+                               for k, shape, _, what in ttb.ROWS))
+    for dt in ("bfloat16", "float32"):
+        for kernel, shape, what in train + FAMILY_BWD_INSTANCES:
+            args = ttb.inputs(torch, dev, gen, kernel, shape, dt)
+            fn, plain = fns[kernel]
+            case = ttb.case(kernel, shape, what)
+            extra = None
+            if kernel == "grouped_matmul_bwd":
+                route = gm.route_bwd(args[0], args[1])
+                extra = {"route": route}
+                before = dict(gm.bwd_routes)
+            err = check(kernel, case, dt, lambda: fn(*args),
+                        lambda: plain(*args))
+            if kernel == "grouped_matmul_bwd":
+                took = {k: gm.bwd_routes[k] - n for k, n in before.items()}
+                want = {r: 4 * (r == route) for r in ("wgmma", "simt")}
+                if took != want or (dt == "bfloat16" and route != "wgmma"):
+                    raise AssertionError(f"grouped_matmul_bwd {case} "
+                                         f"{names[dt]}: routes {took}, want "
+                                         f"{want} ({route}); bf16 must take "
+                                         f"the tensor cores")
+            res = row(kernel, shape, case, dt, err, lambda: fn(*args),
+                      lambda: plain(*args), args[0].element_size(),
+                      library=ttb.library(torch, kernel, args), extra=extra)
+            floor = BWD_FLOOR_MS.get((kernel, what))
+            if floor is not None and dt == "bfloat16" and \
+                    not res["ms"] <= floor:
+                raise AssertionError(f"{kernel} {case} bf16: "
+                                     f"{res['ms']:.4f} ms, floor {floor}")
+            entries.setdefault(kernel, res)
+            del args
     del flush
     torch.cuda.empty_cache()
     return entries
@@ -2265,8 +2231,9 @@ def family_expect(torch, cfg, rms, fa, steps: int):
     cpu = torch.device("cpu")   # small operands, for the routes' purity
     kernels = ("matmul", "rmsnorm", "flash_attention", "wkv6", "rglru",
                "grouped_matmul")
-    per_call = {"rmsnorm": 2, "flash_attention": 3, "wkv6": 4, "rglru": 1,
-                "grouped_matmul": 2}
+    from repro_torch.kernels.rwkv_scan.rwkv_scan import BWD_STAGES
+    per_call = {"rmsnorm": 2, "flash_attention": 3,
+                "wkv6": len(BWD_STAGES), "rglru": 1, "grouped_matmul": 2}
     fwd, bwd = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
     fr = {k: {} for k in ("rmsnorm", "flash_attention", "grouped_matmul")}
     br = {k: {} for k in fr}

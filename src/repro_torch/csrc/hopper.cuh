@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's kernels: thin inline-PTX
 // wrappers for cp.async copies, mbarriers, named barriers, 1-D bulk copies,
-// 3-D and 4-D TMA tensor loads, the wgmma shared-memory descriptor and
-// instructions (A from shared memory or from registers), and setmaxnreg,
-// plus the host-side encoders of TMA tensor maps.  The encodings follow the
+// 3-D and 4-D TMA tensor loads, 3-D TMA tensor stores and their bulk
+// groups, stmatrix, the wgmma shared-memory descriptor and instructions (A
+// from shared memory or from registers), and setmaxnreg, plus the
+// host-side encoders of TMA tensor maps.  The encodings follow the
 // PTX ISA
 // (as CUTLASS's cute/arch/mma_sm90_desc.hpp, mma_sm90_gmma.hpp and
 // copy_sm90_tma.hpp spell them out).
@@ -146,6 +147,68 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Copies the box at coordinates (c0 innermost, c1, c2) of `map` from
+// shared memory at `src` to global memory (parts outside the tensor are
+// not written), as one bulk group of this thread's (commit it after).
+// Shared-memory writes of other threads must be made visible to the
+// async proxy first (fence_proxy_async by each writer, then a barrier).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed bulk groups still read
+// their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// waits until at most N of this thread's committed bulk groups are
+// incomplete (their global writes done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// orders this thread's shared-memory writes before later async-proxy
+// (TMA) accesses of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices from the warp's registers to shared memory,
+// transposed: thread t's r[i] holds (row t / 4, columns 2 (t % 4) and
+// + 1, the lower column in the low half) of matrix i, and threads 8 i ..
+// 8 i + 7 give the addresses of matrix i's stored rows (16 bytes each:
+// its columns become rows).  The x2 form: matrices 0 and 1, addresses
+// from threads 0 - 15.
+__device__ __forceinline__ void stmatrix_x4_trans(void* row,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n"
+      :: "r"(smem_u32(row)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+__device__ __forceinline__ void stmatrix_x2_trans(void* row,
+                                                  const uint32_t (&r)[2]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n"
+      :: "r"(smem_u32(row)), "r"(r[0]), "r"(r[1])
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor with the 128-byte swizzle (layout type
@@ -191,130 +254,545 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 }
 
 // d[0 .. N/2) += A (64 x 16) * B (16 x N), bf16 operands from shared memory
-// through descriptors a and b, fp32 accumulators in registers.  TA = 1:
+// through descriptors a and b, fp32 accumulators in registers; N any
+// multiple of 8 up to 256, one instruction (A is read from shared memory
+// once, where a sum of narrower products reads it once for each).  TA = 1:
 // A is MN-major (transposed), TB = 1: B is MN-major.  Thread t of the
 // warpgroup holds, in d[q], row 16 (t / 32) + (t % 32) / 4 + 8 ((q / 2) % 2)
 // and column 8 (q / 4) + 2 (t % 4) + q % 2 of the 64 x N product.
+#define HOPPER_D4(i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 ||
-                N == 256, "wgmma_bf16: no instance for this N");
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256,
+                "wgmma_bf16: N is a multiple of 8 up to 256");
   if constexpr (N == 8) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3},"
-      " %4, %5, p, 1, 1, %7, %8;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      " %0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : HOPPER_D4(0)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else if constexpr (N == 16) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7},"
-      " %8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
+      " %0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 24) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else if constexpr (N == 32) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15},"
-      " %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 40) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 48) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 56) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27"
+      "}, %28, %29, p, 1, 1, %31, %32;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else if constexpr (N == 64) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 72) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1, %39, %40;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 80) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39"
+      "}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 88) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43"
+      "}, %44, %45, p, 1, 1, %47, %48;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 96) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 104) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51"
+      "}, %52, %53, p, 1, 1, %55, %56;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 112) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, %59, %60;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 120) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %62, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59"
+      "}, %60, %61, p, 1, 1, %63, %64;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else if constexpr (N == 128) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 136) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67"
+      "}, %68, %69, p, 1, 1, %71, %72;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 144) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p, 1, 1, %75, %76;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 152) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %78, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75"
+      "}, %76, %77, p, 1, 1, %79, %80;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 160) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, %83, %84;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 168) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %86, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83"
+      "}, %84, %85, p, 1, 1, %87, %88;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 176) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87"
+      "}, %88, %89, p, 1, 1, %91, %92;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 184) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %94, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91"
+      "}, %92, %93, p, 1, 1, %95, %96;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 192) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 200) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %102, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99"
+      "}, %100, %101, p, 1, 1, %103, %104;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 208) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103"
+      "}, %104, %105, p, 1, 1, %107, %108;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 216) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %110, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n216k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107"
+      "}, %108, %109, p, 1, 1, %111, %112;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 224) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, %115, %116;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104), HOPPER_D4(108)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 232) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %118, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n232k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115"
+      "}, %116, %117, p, 1, 1, %119, %120;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104), HOPPER_D4(108),
+        HOPPER_D4(112)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 240) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %122, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119"
+      "}, %120, %121, p, 1, 1, %123, %124;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104), HOPPER_D4(108),
+        HOPPER_D4(112), HOPPER_D4(116)
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 248) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %126, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n248k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123"
+      "}, %124, %125, p, 1, 1, %127, %128;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104), HOPPER_D4(108),
+        HOPPER_D4(112), HOPPER_D4(116), HOPPER_D4(120)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   } else if constexpr (N == 256) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : HOPPER_D4(0), HOPPER_D4(4), HOPPER_D4(8), HOPPER_D4(12),
+        HOPPER_D4(16), HOPPER_D4(20), HOPPER_D4(24), HOPPER_D4(28),
+        HOPPER_D4(32), HOPPER_D4(36), HOPPER_D4(40), HOPPER_D4(44),
+        HOPPER_D4(48), HOPPER_D4(52), HOPPER_D4(56), HOPPER_D4(60),
+        HOPPER_D4(64), HOPPER_D4(68), HOPPER_D4(72), HOPPER_D4(76),
+        HOPPER_D4(80), HOPPER_D4(84), HOPPER_D4(88), HOPPER_D4(92),
+        HOPPER_D4(96), HOPPER_D4(100), HOPPER_D4(104), HOPPER_D4(108),
+        HOPPER_D4(112), HOPPER_D4(116), HOPPER_D4(120), HOPPER_D4(124)
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
-
   }
 }
+#undef HOPPER_D4
 
 // d[0 .. N/2) += A (64 x 16) * B (16 x N) with A from registers: a[0..3]
 // hold, pair-packed (lower column in the low half), thread t's elements

@@ -86,10 +86,11 @@ SIGNATURES = {
                        _I, ctypes.POINTER(_LL), _I, _P],
     "repro_wkv6_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, ctypes.POINTER(_LL), _I, _P],
-    # stage, r, k, v, w, dy, u, ds, checkpoints, dr, dk, dv, dw, du's
-    # partials, du, B, T, H, D, blocks a head, threads a block, stream
-    "repro_wkv6_bwd_f32": [_I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P],
-    "repro_wkv6_bwd_bf16": [_I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P],
+    # stage, r, k, v, w, dy, u, ds, checkpoints, dr, dk, dv, dw, dv's,
+    # the bonus's and du's partials, du, B, T, H, D, blocks a head,
+    # threads a block, stream
+    "repro_wkv6_bwd_f32": [_I, *[_P] * 16, _I, _I, _I, _I, _I, _I, _P],
+    "repro_wkv6_bwd_bf16": [_I, *[_P] * 16, _I, _I, _I, _I, _I, _I, _P],
     # a, b, h, h_T, B, T, D, strips, threads a block, a's (batch, time)
     # strides, b's, 16-byte copies, stream
     "repro_rglru_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
@@ -105,11 +106,14 @@ SIGNATURES = {
                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],
     "repro_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I,
                                   _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    # ... then (wgmma) C rows a tile and persistent blocks, stream
     "repro_grouped_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I,
-                                        _LL, _LL, _LL, _LL, _LL, _LL, _P],
-    # which (0 dx, 1 dw), x, w, dy, out, E, C, D, F, stream
+                                        _LL, _LL, _LL, _LL, _LL, _LL,
+                                        _I, _I, _P],
+    # which (0 dx, 1 dw), x, w, dy, out, E, C, D, F, rows a tile,
+    # persistent blocks, stream
     "repro_grouped_matmul_bwd_bf16_wgmma": [_I, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _P],
+                                            _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

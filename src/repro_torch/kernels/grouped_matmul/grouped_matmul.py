@@ -9,8 +9,8 @@ through their strides).  CPU tensors run
 :func:`~repro_torch.kernels.grouped_matmul.ref.grouped_matmul_ref`.  Under
 grad the CUDA call is an autograd node whose backward,
 :func:`grouped_matmul_bwd`, runs the tensor-core kernel on the transposed
-products, reading x, w and dy in place, or the SIMT kernel
-(:func:`route_bwd`).
+products, reading x, w and dy in place on :func:`plan_bwd`'s tiles, or
+the SIMT kernel (:func:`route_bwd`).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ _ENTRY = {("simt", torch.float32): "repro_grouped_matmul_f32",
           ("wgmma", torch.bfloat16): "repro_grouped_matmul_bf16_wgmma"}
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (F tiles, experts)
 _BN = 64                   # SIMT output tile columns, as in the source
+TILE_M = 128               # the tensor-core kernel's output columns a tile
 
 launches = 0               # kernel launches since the last reset
 routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
@@ -75,6 +76,46 @@ def route_bwd(x: torch.Tensor, w: torch.Tensor) -> str:
             and F > 0 and D % 8 == 0 and F % 8 == 0 else "simt")
 
 
+def tile_rows(rows: int) -> int:
+    """C rows a tile of the tensor-core kernel where its B operand is
+    K-major (the forward's x, dx's dy): ``rows`` split into equal tiles of
+    at most 256, rounded up to a multiple of 8 (the instruction's N step),
+    as ``csrc/grouped_matmul.cu``'s ``tile_rows``."""
+    per = -(-rows // -(-rows // 256))
+    return -(-per // 8) * 8
+
+
+def tile_rows64(rows: int) -> int:
+    """The same for an MN-major B (dw's x), whose tiles are whole 64-column
+    swizzle atoms: rounded up to a multiple of 64 (``tile_rows64``)."""
+    per = -(-rows // -(-rows // 256))
+    return -(-per // 64) * 64
+
+
+def plan(E: int, rows: int, cols: int, sms: int, pick=tile_rows):
+    """(rows a tile, tiles, persistent blocks) of a tensor-core launch
+    writing (E, rows, cols): tiles of :data:`TILE_M` of ``cols`` by
+    ``pick(rows)`` rows, walked by one block an SM (``sms``), or one a
+    tile where there are fewer.  The forward's (E,C,F) is ``plan(E, C, F,
+    sms)``.  Pure: shapes and the SM count only; the C side launches the
+    instance of that many rows on that many blocks."""
+    n = pick(rows)
+    tiles = E * -(-cols // TILE_M) * -(-rows // n)
+    return n, tiles, min(tiles, sms)
+
+
+def plan_bwd(which: int, E: int, C: int, D: int, F: int, sms: int):
+    """:func:`plan` of the backward's tensor-core launch: ``which`` 0 is
+    dx (E,C,D) = dy wᵀ, tiles of :data:`TILE_M` of D by :func:`tile_rows`
+    (C) rows; 1 is dw (E,D,F) = xᵀ dy, tiles of :data:`TILE_M` of F by
+    :func:`tile_rows64` (D) rows."""
+    if which == 0:
+        return plan(E, C, D, sms)
+    if which == 1:
+        return plan(E, D, F, sms, tile_rows64)
+    raise ValueError(f"which is 0 (dx) or 1 (dw), got {which}")
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if x.device.type == "cpu":
@@ -102,8 +143,9 @@ class _GroupedMatmul(torch.autograd.Function):
 
 def _product(x: torch.Tensor, w: torch.Tensor, backward: bool
              ) -> torch.Tensor:
-    """x (E,C,D) @ w (E,D,F) by one launch on :func:`route`'s kernel,
-    counted with the forward's launches or the backward's."""
+    """x (E,C,D) @ w (E,D,F) by one launch on :func:`route`'s kernel (the
+    tensor cores' on :func:`plan`'s tiles and persistent blocks), counted
+    with the forward's launches or the backward's."""
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
@@ -112,6 +154,10 @@ def _product(x: torch.Tensor, w: torch.Tensor, backward: bool
     if E > _MAX_GRID or -(-F // _BN) > _MAX_GRID:
         raise ValueError(f"grouped_matmul grid too large: E {E}, F {F}")
     r = route(x, w)
+    tiles = ()                  # the tensor-core route's plan
+    if r == "wgmma":
+        n, _, blocks = plan(E, C, F, _build.sm_count(x.device.index))
+        tiles = (n, blocks)
     lib = _build.library()
     global launches, bwd_launches
     with torch.cuda.device(x.device):
@@ -124,7 +170,7 @@ def _product(x: torch.Tensor, w: torch.Tensor, backward: bool
             routes[r] += 1
         rc = getattr(lib, _ENTRY[r, x.dtype])(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
-            *x.stride(), *w.stride(), stream)
+            *x.stride(), *w.stride(), *tiles, stream)
     _build.check(rc, f"grouped_matmul ({r})")
     return out
 
@@ -134,8 +180,10 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     """(dx, dw) of :func:`grouped_matmul` for the output gradient dy
     (E,C,F): dx in x's dtype, dw in w's.  CUDA tensors take
     :func:`route_bwd`'s route: two launches of the tensor-core kernel on
-    x, w and dy in place, or of the SIMT kernel on the transposed views;
-    each output one accumulation in a fixed order.  CPU tensors run
+    x, w and dy in place (persistent blocks on :func:`plan_bwd`'s tiles;
+    dw on a second stream, so that it fills the SMs dx's last tiles
+    leave), or of the SIMT kernel on the transposed views; each output
+    one accumulation in a fixed order.  CPU tensors run
     :func:`~repro_torch.kernels.grouped_matmul.ref.grouped_matmul_bwd_ref`."""
     _check(x, w)
     E, C, D = x.shape
@@ -152,21 +200,45 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
         return (_product(dy, w.transpose(1, 2), backward=True),
                 _product(x.transpose(1, 2), dy, backward=True))
     x, w, dy = map(_build.dense, (x, w, dy))
-    return _product_bwd(0, x, w, dy), _product_bwd(1, x, w, dy)
+    E, C, D = x.shape
+    F = w.shape[2]
+    dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
+    dw = torch.empty((E, D, F), dtype=x.dtype, device=x.device)
+    # dw on a second stream, so that its blocks take the SMs that dx's
+    # last tiles leave idle (the outputs are independent).  Every tensor
+    # it touches was allocated on the caller's stream, which waits for it
+    # before going on, so none is freed or reused before it is done.
+    main = torch.cuda.current_stream(x.device)
+    side = _side_stream(x.device)
+    side.wait_stream(main)
+    _product_bwd(0, x, w, dy, dx)
+    with torch.cuda.stream(side):
+        _product_bwd(1, x, w, dy, dw)
+    main.wait_stream(side)
+    return dx, dw
+
+
+_SIDE = {}                 # device index -> the backward's second stream
+
+
+def _side_stream(device: torch.device):
+    if device.index not in _SIDE:
+        _SIDE[device.index] = torch.cuda.Stream(device)
+    return _SIDE[device.index]
 
 
 def _product_bwd(which: int, x: torch.Tensor, w: torch.Tensor,
-                 dy: torch.Tensor) -> torch.Tensor:
-    """dx (``which`` 0) or dw (1) by one tensor-core launch on dense bf16
-    x, w, dy, counted with the backward's launches."""
+                 dy: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """dx (``which`` 0) or dw (1) into ``out`` by one tensor-core launch
+    on dense bf16 x, w, dy on :func:`plan_bwd`'s tiles and persistent
+    blocks, on the current stream, counted with the backward's
+    launches."""
     E, C, D = x.shape
     F = w.shape[2]
-    out = torch.empty((E, C, D) if which == 0 else (E, D, F),
-                      dtype=x.dtype, device=x.device)
     if out.numel() == 0 or C == 0:        # dw over no rows is zero
         return out.zero_()
-    if E > _MAX_GRID:
-        raise ValueError(f"grouped_matmul grid too large: E {E}")
+    n, _, blocks = plan_bwd(which, E, C, D, F,
+                            _build.sm_count(x.device.index))
     lib = _build.library()
     global bwd_launches
     with _build.on_device(x.device.index):
@@ -174,7 +246,7 @@ def _product_bwd(which: int, x: torch.Tensor, w: torch.Tensor,
         bwd_routes["wgmma"] += 1
         rc = lib.repro_grouped_matmul_bwd_bf16_wgmma(
             which, x.data_ptr(), w.data_ptr(), dy.data_ptr(),
-            out.data_ptr(), E, C, D, F,
+            out.data_ptr(), E, C, D, F, n, blocks,
             _build.current_stream(x.device.index))
     name = "dx" if which == 0 else "dw"
     _build.check(rc, f"grouped_matmul backward ({name}, wgmma)")

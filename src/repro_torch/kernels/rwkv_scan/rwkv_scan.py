@@ -8,7 +8,7 @@ and reads r/k/v/w through their strides, on the grid :func:`grid` gives
 (the columns per block from :func:`plan`; the C side launches that grid
 and refuses one its instance cannot run); CPU tensors run
 :func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_ref`.  Under grad the CUDA
-call is an autograd node whose backward is :func:`wkv6_bwd`, the four
+call is an autograd node whose backward is :func:`wkv6_bwd`, the two
 launches of ``csrc/wkv6_bwd.cu`` on :func:`grid_bwd`'s grid.
 """
 
@@ -35,19 +35,21 @@ TILE = (4, 2)              # state rows x columns a thread keeps
 COLUMN_BLOCK = {16: 16, 32: 32, 64: 24, 128: 16}
 HEAD_DIMS = tuple(COLUMN_BLOCK)     # the kernel's head-width instances
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (heads, batch)
-# the backward (csrc/wkv6_bwd.cu): a thread keeps BWD_LINE columns (rows)
-# of one state row (column), so a line's D / BWD_LINE lanes share a warp;
-# the states are checkpointed every BWD_CHUNK steps; blocks of at most
-# BWD_MAX_THREADS threads
+# the backward (csrc/wkv6_bwd.cu): a block holds BWD_ROWS rows of a head's
+# state, all D columns (D / BWD_ROWS blocks a head); a thread keeps
+# BWD_LINE columns of one row, so a row's D / BWD_LINE lanes share a warp;
+# time walks in chunks of BWD_CHUNK steps (staged, and the states
+# checkpointed at their starts); two launches: the walk (forward, then
+# backward: dr, dk, dw, the blocks' partial dv) and the sums (dv, du)
 BWD_LINE = 4
 BWD_CHUNK = 8
-BWD_MAX_THREADS = 128
-BWD_STAGES = ("states", "rows", "cols", "du")
+BWD_ROWS = 16
+BWD_STAGES = ("walk", "sums")
 _BWD_ENTRY = {torch.float32: "repro_wkv6_bwd_f32",
               torch.bfloat16: "repro_wkv6_bwd_bf16"}
 
 launches = 0               # kernel launches since the last reset
-bwd_launches = 0           # the backward's launches (four a call)
+bwd_launches = 0           # the backward's launches (two a call)
 
 
 def _check(r, k, v, w, u) -> None:
@@ -97,15 +99,12 @@ def grid(shape, dtype: torch.dtype):
 
 def grid_bwd(shape, dtype: torch.dtype):
     """((blocks a head, heads, batch), threads a block) of the backward's
-    states, rows and cols launches for r of ``shape`` (B,T,H,D): D lines
-    of D / :data:`BWD_LINE` lanes a head, in blocks of at most
-    :data:`BWD_MAX_THREADS` threads; raises for what the kernels do not
-    take."""
+    walk for r of ``shape`` (B,T,H,D): D / :data:`BWD_ROWS` blocks a head,
+    each :data:`BWD_ROWS` rows of D / :data:`BWD_LINE` lanes; raises for
+    what the kernels do not take."""
     B, _, H, D = shape
     plan(shape, dtype)
-    per_head = D * (D // BWD_LINE)
-    threads = min(per_head, BWD_MAX_THREADS)
-    return (per_head // threads, H, B), threads
+    return (D // BWD_ROWS, H, B), BWD_ROWS * (D // BWD_LINE)
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -185,10 +184,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """(dr, dk, dv, dw, du) of :func:`wkv6` for the gradients dy of y and
     ds of the final state (None: zeros): dr, dk, dv, dw in r's dtype, du
-    in u's.  CUDA tensors launch ``csrc/wkv6_bwd.cu``'s four kernels
-    (:data:`BWD_STAGES`: the states checkpointed every :data:`BWD_CHUNK`
-    steps, then dr/dk/dw by rows, dv by columns, du's batch sum), two
-    calls giving the same bits; CPU tensors run
+    in u's.  CUDA tensors launch ``csrc/wkv6_bwd.cu``'s two kernels
+    (:data:`BWD_STAGES`: the walk, which checkpoints the states every
+    :data:`BWD_CHUNK` steps on its way forward and yields dr, dk, dw and
+    each row block's part of dv on its way back; then the sums of dv's
+    parts and of du over the batch, in fixed orders), two calls giving the
+    same bits; CPU tensors run
     :func:`~repro_torch.kernels.rwkv_scan.ref.wkv6_bwd_ref`."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
@@ -214,8 +215,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dr, dk, dv, dw, du.to(u.dtype)
     ck = torch.empty((B, H, -(-T // BWD_CHUNK), D, D), dtype=torch.float32,
                      device=dev)
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     (blocks, _, _), threads = grid_bwd(r.shape, r.dtype)
+    dv_part = torch.empty((blocks, B, T, H, D), dtype=torch.float32,
+                          device=dev)
+    bonus_part = torch.empty((blocks, B, T, H), dtype=torch.float32,
+                             device=dev)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     entry = getattr(_build.library(), _BWD_ENTRY[r.dtype])
     global bwd_launches
     with _build.on_device(dev.index):
@@ -226,6 +231,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w.data_ptr(), dy.data_ptr(), uf.data_ptr(),
                        ds.data_ptr(), ck.data_ptr(), dr.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                       dv_part.data_ptr(), bonus_part.data_ptr(),
                        du_part.data_ptr(), du.data_ptr(), B, T, H, D,
                        blocks, threads, stream)
             _build.check(rc, f"wkv6 backward ({name})")

@@ -1147,7 +1147,8 @@ def test_kernels_without_backward_raise_under_grad(cuda):
     x = _randn((2, 8, 64), "float32", cuda, 59)
     wg = _randn((2, 64, 16), "float32", cuda, 60)
     for mod, call, n in (
-            (wkv, lambda: wkv.wkv6(r.requires_grad_(True), k, v, w, u)[0], 4),
+            (wkv, lambda: wkv.wkv6(r.requires_grad_(True), k, v, w, u)[0],
+             len(wkv.BWD_STAGES)),
             (scan, lambda: scan.rglru(ga, gb.requires_grad_(True))[0], 1),
             (gmm, lambda: gmm.grouped_matmul(x, wg.requires_grad_(True)), 2)):
         before = mod.bwd_launches
@@ -1246,12 +1247,13 @@ def _held(got, want, dtype, what):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", sorted(wkv.COLUMN_BLOCK))
-@pytest.mark.parametrize("T", [1, 7, 8, 9, 77])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 16, 17, 77])
 def test_wkv6_bwd_kernel_matches_plain(cuda, D, T, dtype):
-    """Every head width the forward compiles, T at 1, the checkpoint
-    interval and its neighbours and a ragged 77, decays down to 0.01 and a
-    nonzero final-state gradient: the four launches against the plain
-    version, two calls bitwise equal."""
+    """Every head width the forward compiles (each walk instance), T at 1,
+    the chunk (checkpoint interval) and its neighbours, two chunks and one
+    step past them, and a ragged 77, decays down to 0.01 and a nonzero
+    final-state gradient: the launches against the plain version, two
+    calls bitwise equal."""
     args = _wkv_bwd_operands(2, T, 3, D, dtype, cuda, 70 + D + T)
     before = wkv.bwd_launches
     got = wkv.wkv6_bwd(*args)
@@ -1368,6 +1370,31 @@ def test_grouped_matmul_bwd_kernel_matches_plain(cuda, E, C, D, F, dtype):
     xt = x.transpose(1, 2).contiguous().transpose(1, 2)
     assert all(torch.equal(a, b) for a, b in
                zip(gmm.grouped_matmul_bwd(xt, w, dy), got))
+
+
+# one C for each tile height the backward's dx can pick (tile_rows: 8 to
+# 256 rows in steps of 8, ragged below each but the first); D 72 is one
+# partial 128-row tile of dx, F 64 one of dw
+GMM_DX_ROWS = [5] + [n - 3 for n in range(16, 257, 8)]
+
+
+@pytest.mark.parametrize("C", GMM_DX_ROWS)
+def test_grouped_matmul_bwd_every_dx_instance(cuda, C):
+    """Each dx instance (C rows a tile in steps of 8) against the plain
+    version, two calls bitwise, on the tile height plan_bwd() picks; dw
+    beside it on its 64-row instance."""
+    E, D, F = 2, 72, 64
+    x = _randn((E, C, D), "bfloat16", cuda, 140) * 0.5
+    w = _randn((E, D, F), "bfloat16", cuda, 141) * D ** -0.5
+    dy = _randn((E, C, F), "bfloat16", cuda, 142)
+    assert gmm.plan_bwd(0, E, C, D, F, 132)[0] == -(-C // 8) * 8
+    before = gmm.bwd_routes["wgmma"]
+    got = gmm.grouped_matmul_bwd(x, w, dy)
+    again = gmm.grouped_matmul_bwd(x, w, dy)
+    assert gmm.bwd_routes["wgmma"] == before + 4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held(got, grouped_matmul_bwd_ref(x, w, dy), "bfloat16",
+          f"grouped_matmul_bwd dx instance C {C}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

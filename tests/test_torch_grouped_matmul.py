@@ -226,3 +226,101 @@ def test_route_bwd_by_dtype_and_widths(E, C, D, F, dtype, want):
     assert tgmm.route_bwd(x, w) == want
     assert tgmm.route_bwd(_meta((E, D, C), dtype).transpose(1, 2),
                           w) == want
+
+
+@pytest.mark.parametrize("pick,step", [("tile_rows", 8),
+                                       ("tile_rows64", 64)])
+def test_tile_rows_cover_in_equal_tiles(pick, step):
+    """tile_rows() (dx's and the forward's C tiles, a K-major B) splits any
+    row count into equal tiles of at most 256 rows in steps of 8 with no
+    empty tile; tile_rows64() (dw's D tiles, an MN-major B) the same in
+    whole 64-column atoms."""
+    for rows in list(range(1, 1100)) + [2592, 4096]:
+        n = getattr(tgmm, pick)(rows)
+        tiles = -(-rows // n)
+        assert n % step == 0 and step <= n <= 256
+        assert tiles == -(-rows // 256)          # as few tiles as 256 allow
+        assert (tiles - 1) * n < rows <= tiles * n
+
+
+def test_plan_bwd_at_granite():
+    """granite-moe-3b-a800m's training products (C = 1056 rows an expert):
+    dx's C tiles are 5 x 216 (1080 rows, 2% past C; 64-row atoms would
+    take 5 x 256, 21%), dw's D tiles whole atoms of 64, and the persistent
+    blocks one an SM."""
+    for D, F in ((1536, 512), (512, 1536)):
+        n, tiles, blocks = tgmm.plan_bwd(0, 40, 1056, D, F, 132)
+        assert (n, -(-1056 // n)) == (216, 5)
+        assert tiles == 40 * 5 * D // tgmm.TILE_M and blocks == 132
+        assert (5 * n - 1056) / 1056 < 0.03
+        n, tiles, blocks = tgmm.plan_bwd(1, 40, 1056, D, F, 132)
+        assert n % 64 == 0 and D % n == 0
+        assert tiles == 40 * (F // tgmm.TILE_M) * (D // n) and blocks == 132
+
+
+@pytest.mark.parametrize("E,C,D,F", [(40, 1056, 1536, 512), (3, 40, 48, 32),
+                                     (2, 150, 160, 72), (2, 300, 200, 264),
+                                     (1, 5, 8, 8), (64, 8, 2048, 1024)])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_plan_bwd_tiles_and_blocks(E, C, D, F, sms):
+    """plan_bwd() covers each product's output with its tiles (dx: D in
+    TILE_M rows, C in tile_rows(C); dw: F in TILE_M, D in tile_rows64(D)),
+    and runs min(tiles, SMs) persistent blocks: never more blocks than
+    tiles, never more than the card's SMs.  Pure: shapes and the count."""
+    n, tiles, blocks = tgmm.plan_bwd(0, E, C, D, F, sms)
+    assert n == tgmm.tile_rows(C) and n % 8 == 0
+    assert tiles == E * -(-D // tgmm.TILE_M) * -(-C // n)
+    assert blocks == min(tiles, sms)
+    n, tiles, blocks = tgmm.plan_bwd(1, E, C, D, F, sms)
+    assert n == tgmm.tile_rows64(D) and n % 64 == 0
+    assert tiles == E * -(-F // tgmm.TILE_M) * -(-D // n)
+    assert blocks == min(tiles, sms)
+    with pytest.raises(ValueError):
+        tgmm.plan_bwd(2, E, C, D, F, sms)
+
+
+def test_plan_bwd_matches_the_source():
+    """The planner's constants and picks are csrc/grouped_matmul.cu's: the
+    tile's output columns, an instance for every C tile a K-major B can
+    take (8 to 256 in steps of 8, the forward's and dx's) and for every D
+    tile of dw's MN-major B; the plan is the wrapper's alone (the C side
+    launches the instance it names and plans nothing)."""
+    import re
+    from pathlib import Path
+    src = (Path(tgmm.__file__).resolve().parents[2] / "csrc"
+           / "grouped_matmul.cu").read_text()
+    assert int(re.search(r"constexpr int BM = (\d+);", src).group(1)) \
+        == tgmm.TILE_M
+    cases = re.search(r"#define REPRO_GMM_CASES\(CASE\)(.*?)\n\n", src,
+                      re.S).group(1)
+    assert sorted(int(n) for n in re.findall(r"CASE\((\d+)\)", cases)) \
+        == list(range(8, 257, 8))
+    assert "REPRO_GMM_CASES(REPRO_GMM_DX_CASE)" in src
+    dw = sorted(int(n) for n in re.findall(r"REPRO_GMM_DW_CASE\((\d+)\)",
+                                           src))
+    assert dw == [64, 128, 192, 256]
+    assert {tgmm.tile_rows(c) for c in range(1, 4097)} \
+        == set(range(8, 257, 8))
+    assert {tgmm.tile_rows64(d) for d in range(1, 4097)} == set(dw)
+    assert "REPRO_GMM_CASES(REPRO_GMM_CASE)" in src
+    assert "tile_rows" not in src and "sm_count" not in src
+
+
+@pytest.mark.parametrize("E,C,F", [(64, 160, 1024), (64, 8, 2048),
+                                   (40, 1056, 1536), (2, 4096, 8),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_plan_forward_tiles_and_blocks(E, C, F, sms):
+    """plan() of the forward's (E,C,F): C tiles of tile_rows(C) rows in
+    8-row steps (up to 256 rows, a capacity that is a multiple of 8
+    multiplies no pad row), F in TILE_M columns, min(tiles, SMs)
+    persistent blocks; and plan_bwd() is plan() on dx's (E,C,D) and dw's
+    (E,D,F)."""
+    n, tiles, blocks = tgmm.plan(E, C, F, sms)
+    assert n == tgmm.tile_rows(C)
+    assert C % 8 or C > 256 or n == C
+    assert tiles == E * -(-F // tgmm.TILE_M) * -(-C // n)
+    assert blocks == min(tiles, sms) >= 1
+    assert tgmm.plan_bwd(0, E, C, F, 8, sms) == tgmm.plan(E, C, F, sms)
+    assert tgmm.plan_bwd(1, E, 8, C, F, sms) \
+        == tgmm.plan(E, C, F, sms, tgmm.tile_rows64)

@@ -247,17 +247,17 @@ def test_wkv6_vector_copies_need_aligned_strides():
                                      (2, 77, 4, 16), (2, 77, 4, 32),
                                      (2, 77, 4, 128), (3, 1, 1, 64)])
 def test_wkv6_bwd_grid_covers_every_line(B, T, H, D, dtype):
-    """The backward's grid: D lines (state rows, or columns) of D /
-    BWD_LINE lanes a head, whole lines and whole warps a block, at most
-    BWD_MAX_THREADS threads, a line's lanes inside one warp (its sums are
-    shuffles); independent of T, and refusing what the forward refuses."""
+    """The backward's grid: D / BWD_ROWS blocks a head, each BWD_ROWS state
+    rows of D / BWD_LINE lanes (every row of every head once), whole warps
+    a block, a row's lanes inside one warp (its sums are shuffles);
+    independent of T, and refusing what the forward refuses."""
     (gx, gy, gz), threads = twkv.grid_bwd((B, T, H, D), dtype)
     lanes = D // twkv.BWD_LINE
     assert (gy, gz) == (H, B)
-    assert gx * threads == D * lanes
-    assert threads % 32 == 0 and threads % lanes == 0
-    assert threads <= twkv.BWD_MAX_THREADS and 32 % lanes == 0
-    assert lanes >= 4       # the rows kernel's lanes 0-2 store dr, dk, dw
+    assert gx * twkv.BWD_ROWS == D and threads == twkv.BWD_ROWS * lanes
+    assert threads % 32 == 0 and 32 % lanes == 0
+    assert lanes >= 4       # a row's 3 BWD_CHUNK sums halve over its lanes
+    assert threads <= 1024
     assert twkv.grid_bwd((B, 5 * T + 3, H, D), dtype) == ((gx, gy, gz),
                                                           threads)
     with pytest.raises(ValueError):
@@ -266,17 +266,28 @@ def test_wkv6_bwd_grid_covers_every_line(B, T, H, D, dtype):
         twkv.grid_bwd((B, T, H, D), torch.float16)
 
 
+@pytest.mark.parametrize("B,T", [(1, 1000), (4, 1024)])
+def test_wkv6_bwd_grid_fills_the_card(B, T):
+    """rwkv6-3b's backward gives every one of an H100's 132 SMs a block at
+    B1 (4 row blocks a head x 40 heads) and at least two at B4; a block is
+    8 warps, so two fit an SM at 128 registers a thread."""
+    (gx, gy, gz), threads = twkv.grid_bwd((B, T, 40, 64), torch.bfloat16)
+    assert gx * gy * gz >= 132 * (1 if B == 1 else 2)
+    assert threads == 256 and 2 * threads * 128 <= 65536
+
+
 def test_wkv6_bwd_constants_match_the_source():
     """The wrapper's backward constants are csrc/wkv6_bwd.cu's: the lanes'
-    width, the checkpoint interval, the block cap, and one stage of the C
-    entry for each name in BWD_STAGES."""
+    width, the chunk, the rows a block, and one stage of the C entry for
+    each name in BWD_STAGES (0 the walk, 1 the sums)."""
     src = (Path(twkv.__file__).resolve().parents[2] / "csrc"
            / "wkv6_bwd.cu").read_text()
     consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
     assert int(consts["W"]) == twkv.BWD_LINE
     assert int(consts["L"]) == twkv.BWD_CHUNK
-    assert int(consts["MAX_THREADS"]) == twkv.BWD_MAX_THREADS
-    stages = sorted(int(n) for n in re.findall(r"stage == (\d)", src))
-    assert stages + [3] == list(range(len(twkv.BWD_STAGES)))
-    assert "st == 3" in src
+    assert int(consts["ROWS"]) == twkv.BWD_ROWS
+    stages = sorted(int(n) for n in re.findall(r"\bst [!=]= (\d)", src))
+    assert stages == list(range(len(twkv.BWD_STAGES)))
+    assert twkv.BWD_STAGES == ("walk", "sums")
+    assert "wkv6_bwd_walk_kernel" in src and "wkv6_bwd_sums_kernel" in src
     assert not re.search(r"\batomic\w*\s*\(", src)     # no atomics
