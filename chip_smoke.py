@@ -20,8 +20,10 @@ ten phases; any mismatch raises, so the script exits non-zero:
     and strides TMA cannot read take), each row naming its route, the
     bf16 flash-attention rows also timed on the SIMT kernel (the design
     before the tensor-core one), each of the tensor-core flash-attention
-    instances (Dh 64, 128, 256) held once, the grouped matmul's
-    wrapper's host time per call on each route; WKV6 and the RG-LRU scan
+    instances (Dh 64, 128, 256) held once, the grouped matmul's fp32 row
+    at most 1.5 x ``torch.bmm``'s time in the same run, the grouped
+    matmul's wrapper's host time per call on each route; WKV6 and the
+    RG-LRU scan
     also at rwkv6-3b's and recurrentgemma-2b's 4096-token prefill shapes
     (held to the plain version once, the plain version untimed), and
     every compiled instance of both held once (WKV6's four head widths,
@@ -124,10 +126,14 @@ ten phases; any mismatch raises, so the script exits non-zero:
     grouped matmul against their plain versions, in bf16 and fp32, two
     calls bitwise equal: WKV6 at rwkv6-3b's B4 T1024 and B1 T1000 H40 D64
     and at every other compiled head width (16, 32, 128), decays down to
-    0.01; the scan at B4 T1024 D2560 and a ragged strip; the grouped
-    matmul at granite's gate/up and down products and at each of its
-    backward's tensor-core instances, on the tensor cores in bf16; timed beside the plain version, the bound and, for the
-    grouped matmul, ``torch.bmm`` on the same two products.  Then each
+    0.01; the scan at B4 T1024 D2560, a ragged strip and a T whose
+    checkpoints spill to global memory, bitwise equal to its plain
+    version; the grouped matmul at granite's gate/up and down products
+    and at each of its backward's tensor-core instances, on the tensor
+    cores in bf16 and the SIMT kernel in fp32; timed beside the plain
+    version, the bound and, for the grouped matmul, ``torch.bmm`` on the
+    same two products; the training rows held to their floors (the fp32
+    grouped matmul at most 1.5 x ``torch.bmm``'s time).  Then each
     family at full width and 2 layers (recurrentgemma-2b: its whole rec,
     rec, attn unit) in fp32, one remat step on the card against the CPU
     plain path (relative L2 1e-3 a gradient leaf) and twice on the card
@@ -777,6 +783,13 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             raise AssertionError(f"grouped_matmul {row['case']}: no launch "
                                  f"on the {route} route")
         row["route"] = route
+        if dtype == torch.float32:
+            if not row["ms"] <= SIMT_BMM_FLOOR * row["library_ms"]:
+                raise AssertionError(f"grouped_matmul {row['case']} fp32: "
+                                     f"{row['ms']:.4f} ms, floor "
+                                     f"{SIMT_BMM_FLOOR} x torch.bmm's "
+                                     f"{row['library_ms']:.4f}")
+            entries["grouped_matmul_simt"] = row
         if case == GMM_MAIN:
             entries["grouped_matmul"] = row
     err = 0.0
@@ -853,6 +866,14 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             **({"simt_ms": r["simt_ms"]} if "simt_ms" in r else {}),
             **({"host_us_per_call": r["host_us_per_call"]}
                if "host_us_per_call" in r else {}),
+            # K6's SIMT kernel (fp32 and what TMA cannot read) has a source
+            # of its own; its row is phase a's fp32 one
+            **({"simt_source": "src/repro_torch/csrc/grouped_matmul_simt.cu",
+                "simt": {k: entries["grouped_matmul_simt"][k]
+                         for k in ("case", "dtype", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")}}
+               if name == "grouped_matmul" else {}),
             **({"cold_ms": r["cold_ms"], "host_us_per_call": r["host_us"]}
                if "cold_ms" in r else {})})
     return sweep, kernels
@@ -2065,7 +2086,8 @@ FAMILY_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3,
                        "granite-moe-3b-a800m": 2}
 # the backward kernels' rows beside the training shapes that
 # launch/time_train_bwd.py times (its ROWS, which stand for each kernel in
-# the kernels line): every other WKV6 head width, a ragged K5 strip and
+# the kernels line): every other WKV6 head width, a ragged K5 strip and a
+# T whose K5 checkpoints spill to the global tensor (in both dtypes), and
 # K6's other tensor-core instances (dx's C tiles in 8-row steps, dw's D
 # tiles in 64-row steps); each row in bf16 and fp32, decays down to 0.01
 FAMILY_BWD_INSTANCES = [
@@ -2073,15 +2095,29 @@ FAMILY_BWD_INSTANCES = [
     ("wkv6_bwd", (2, 77, 4, 32), "instance D32"),
     ("wkv6_bwd", (2, 77, 4, 128), "instance D128"),
     ("rglru_bwd", (2, 77, 2568), "ragged strip"),
+    ("rglru_bwd", (1, 4101, 2568), "checkpoints in global memory"),
     ("grouped_matmul_bwd", (3, 40, 48, 32), "instances dx N40 dw N64"),
     ("grouped_matmul_bwd", (3, 100, 96, 40), "instances dx N104 dw N128"),
     ("grouped_matmul_bwd", (2, 150, 160, 72), "instances dx N152 dw N192")]
-# the floors of the backward kernels' redesign at the training shapes, bf16
-# (ms, NVIDIA H100 at 700 W): a row slower than its floor fails the phase
-BWD_FLOOR_MS = {("wkv6_bwd", "rwkv6-3b training"): 2.0,
-                ("wkv6_bwd", "rwkv6-3b"): 1.0,
-                ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up"): 0.26,
-                ("grouped_matmul_bwd", "granite-moe-3b-a800m down"): 0.24}
+# the floors of the backward kernels' redesign at the training shapes
+# (ms, NVIDIA H100 at 700 W), by (kernel, row, dtype): a row slower than
+# its floor fails the phase
+BWD_FLOOR_MS = {("wkv6_bwd", "rwkv6-3b training", "bfloat16"): 2.0,
+                ("wkv6_bwd", "rwkv6-3b", "bfloat16"): 1.0,
+                ("rglru_bwd", "recurrentgemma-2b training", "bfloat16"): 0.15,
+                ("rglru_bwd", "recurrentgemma-2b training", "float32"): 0.20,
+                ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
+                 "bfloat16"): 0.26,
+                ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
+                 "bfloat16"): 0.24}
+# the floors of K6's SIMT route against torch.bmm timed in the same run,
+# as the most the kernel may take for each ms of torch.bmm's: phase a's
+# fp32 forward row and phase j's fp32 backward rows
+SIMT_BMM_FLOOR = 1.5
+SIMT_BMM_ROWS = {("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
+                  "float32"),
+                 ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
+                  "float32")}
 # what each backward kernel of phase j is, for the kernels line
 BWD_DESIGN = {
     "wkv6_bwd": "walk (forward: a cp.async ring a warp, fp32 checkpoints "
@@ -2089,11 +2125,19 @@ BWD_DESIGN = {
                 "sums deferred and halved together, one walk for dr, dk, "
                 "dw and the blocks' dv parts) + sums (dv, du in fixed "
                 "order)",
-    "rglru_bwd": "one launch on the forward's strips, h recomputed in fp32",
+    "rglru_bwd": "one launch, strips of 32 channels: a chain warp and three "
+                 "mover warps (a cp.async ring of 4 KB chunks of a, b, dh "
+                 "read in place); pass 1 keeps h at each chunk's start as "
+                 "an fp32 checkpoint in shared memory (a global "
+                 "(B, chunks, D) tensor past 8 KB), pass 2 recomputes a "
+                 "chunk's h in registers and walks g back, da and db in "
+                 "coalesced rows; no (B,T,D) workspace",
     "grouped_matmul_bwd": "wgmma, persistent (one block an SM), one group "
                           "in flight, dx tiles in 8-row steps, dw on a "
                           "second stream; epilogue by stmatrix and TMA "
-                          "stores"}
+                          "stores; fp32 and odd widths on the SIMT kernel "
+                          "(8 x 8 register tiles, a cp.async ring, dy wT "
+                          "and xT dy views read in place)"}
 
 
 def _time_plain(torch, fn, flush) -> float:
@@ -2146,7 +2190,13 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{kernel} {case} {names[dt]}: two calls "
                                  f"differ")
-        return ttb.held(torch, got, plain(), dt, f"{kernel} {case}")
+        want = plain()
+        # K5's backward rounds as its plain version does: the same bits
+        if kernel == "rglru_bwd" and not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{kernel} {case} {names[dt]}: not "
+                                 f"bitwise equal to the plain version")
+        return ttb.held(torch, got, want, dt, f"{kernel} {case}")
 
     def row(kernel, shape, case, dt, err, fn, plain, element_size,
             library=None, extra=None):
@@ -2207,11 +2257,16 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
             res = row(kernel, shape, case, dt, err, lambda: fn(*args),
                       lambda: plain(*args), args[0].element_size(),
                       library=ttb.library(torch, kernel, args), extra=extra)
-            floor = BWD_FLOOR_MS.get((kernel, what))
-            if floor is not None and dt == "bfloat16" and \
-                    not res["ms"] <= floor:
-                raise AssertionError(f"{kernel} {case} bf16: "
+            floor = BWD_FLOOR_MS.get((kernel, what, dt))
+            if floor is not None and not res["ms"] <= floor:
+                raise AssertionError(f"{kernel} {case} {names[dt]}: "
                                      f"{res['ms']:.4f} ms, floor {floor}")
+            if (kernel, what, dt) in SIMT_BMM_ROWS and not (
+                    res["ms"] <= SIMT_BMM_FLOOR * res["library_ms"]):
+                raise AssertionError(f"{kernel} {case} {names[dt]}: "
+                                     f"{res['ms']:.4f} ms, floor "
+                                     f"{SIMT_BMM_FLOOR} x torch.bmm's "
+                                     f"{res['library_ms']:.4f}")
             entries.setdefault(kernel, res)
             del args
     del flush

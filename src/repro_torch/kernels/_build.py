@@ -97,15 +97,22 @@ SIGNATURES = {
                         _LL, _I, _P],
     "repro_rglru_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                          _LL, _I, _P],
-    # a, b, dh, dh_T, the fp32 h workspace, da, db, B, T, D, strips,
-    # threads a block, stream
-    "repro_rglru_bwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
-    "repro_rglru_bwd_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
-    # x, w, out, E, C, D, F, x's (expert, row, column) strides, w's, stream
+    # a, b, dh, dh_T, the fp32 checkpoint tensor (or null), da, db, B, T,
+    # D, strips, threads a block, (batch, time) strides of a, b, dh,
+    # 16-byte copies, stream
+    "repro_rglru_bwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, *[_LL] * 6, _I,
+                            _P],
+    "repro_rglru_bwd_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, *[_LL] * 6, _I,
+                             _P],
+    # x, w, out, E, C, D, F, x's (expert, row, column) strides, w's, then
+    # (SIMT) rows and threads a block, x's K contiguous and 16-byte
+    # copies, w's, stream
     "repro_grouped_matmul_f32": [_P, _P, _P, _I, _I, _I, _I,
-                                 _LL, _LL, _LL, _LL, _LL, _LL, _P],
+                                 _LL, _LL, _LL, _LL, _LL, _LL,
+                                 _I, _I, _I, _I, _I, _I, _P],
     "repro_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I,
-                                  _LL, _LL, _LL, _LL, _LL, _LL, _P],
+                                  _LL, _LL, _LL, _LL, _LL, _LL,
+                                  _I, _I, _I, _I, _I, _I, _P],
     # ... then (wgmma) C rows a tile and persistent blocks, stream
     "repro_grouped_matmul_bf16_wgmma": [_P, _P, _P, _I, _I, _I, _I,
                                         _LL, _LL, _LL, _LL, _LL, _LL,

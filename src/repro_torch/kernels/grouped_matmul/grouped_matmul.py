@@ -5,7 +5,8 @@ CUDA tensors launch one of the two hand-written kernels in
 ``csrc/grouped_matmul.cu``, as :func:`route` picks before the launch: the
 tensor-core kernel (``"wgmma"``, bf16 operands that TMA can read) or the
 SIMT kernel (``"simt"``, everything else: any C, D and F, x and w read
-through their strides).  CPU tensors run
+through their strides in either orientation, on :func:`plan_simt`'s
+tiles).  CPU tensors run
 :func:`~repro_torch.kernels.grouped_matmul.ref.grouped_matmul_ref`.  Under
 grad the CUDA call is an autograd node whose backward,
 :func:`grouped_matmul_bwd`, runs the tensor-core kernel on the transposed
@@ -15,7 +16,7 @@ the SIMT kernel (:func:`route_bwd`).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,8 +28,14 @@ _ENTRY = {("simt", torch.float32): "repro_grouped_matmul_f32",
           ("simt", torch.bfloat16): "repro_grouped_matmul_bf16",
           ("wgmma", torch.bfloat16): "repro_grouped_matmul_bf16_wgmma"}
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (F tiles, experts)
-_BN = 64                   # SIMT output tile columns, as in the source
 TILE_M = 128               # the tensor-core kernel's output columns a tile
+# the SIMT kernel's instances (csrc/grouped_matmul_simt.cu): output tiles
+# of SIMT_BN F columns by 16 ... 128 C rows in steps of 8, on rows / 8 x
+# 16 threads of an 8 x 8 register tile each (16 rows: 128 threads of 2 x
+# 8)
+SIMT_BN = 128
+SIMT_MIN_ROWS = 16
+SIMT_MAX_ROWS = 128
 
 launches = 0               # kernel launches since the last reset
 routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
@@ -74,6 +81,69 @@ def route_bwd(x: torch.Tensor, w: torch.Tensor) -> str:
     D, F = x.shape[2], w.shape[2]
     return ("wgmma" if x.dtype == w.dtype == torch.bfloat16 and D > 0
             and F > 0 and D % 8 == 0 and F % 8 == 0 else "simt")
+
+
+class SimtPlan(NamedTuple):
+    """One SIMT launch: ``rows`` C rows a block (by :data:`SIMT_BN` F
+    columns) on ``threads`` threads; for x and for w the contiguous axis
+    (``"k"``: D, the contraction; ``"mn"``: C for x, F for w) and the
+    bytes a copy moves along it (16, or the element size where 16-byte
+    copies cannot read it)."""
+    rows: int
+    threads: int
+    x_axis: str
+    w_axis: str
+    x_copy: int
+    w_copy: int
+
+
+def _operand(t: torch.Tensor, mn: int, k: int):
+    """(contiguous axis, copy bytes) of an operand whose M (or N) axis is
+    dim ``mn`` and whose K axis is dim ``k``: K where its stride is 1, or
+    where it is the smaller and the other is not 1; 16-byte copies where
+    that axis has unit stride, the other strides (of extents past 1) are
+    multiples of 16 bytes and the base is 16-byte aligned."""
+    s, n = t.stride(), t.shape
+    axis = "k" if s[k] == 1 or (s[mn] != 1 and s[k] <= s[mn]) else "mn"
+    c, o = (k, mn) if axis == "k" else (mn, k)
+    e = 16 // t.element_size()
+    vec = (s[c] == 1 and t.data_ptr() % 16 == 0
+           and all(n[d] <= 1 or s[d] % e == 0 for d in (o, 0)))
+    return axis, 16 if vec else t.element_size()
+
+
+def simt_rows(E: int, C: int, F: int, sms: int) -> int:
+    """C rows a SIMT block: C split into equal tiles of at most
+    :data:`SIMT_MAX_ROWS`, rounded up to a multiple of 8 (at least
+    :data:`SIMT_MIN_ROWS`); more, smaller tiles while the grid of E x row
+    tiles x F tiles would leave some of the ``sms`` SMs without a block."""
+    tiles = max(1, -(-C // SIMT_MAX_ROWS))
+    while True:
+        rows = max(SIMT_MIN_ROWS, -(-(-(-C // tiles)) // 8) * 8)
+        if (E * -(-C // rows) * -(-F // SIMT_BN) >= sms
+                or rows == SIMT_MIN_ROWS):
+            return rows
+        tiles += 1
+
+
+def plan_simt(x: torch.Tensor, w: torch.Tensor, sms: int) -> SimtPlan:
+    """The SIMT launch for x (E,C,D) @ w (E,D,F): :func:`simt_rows`'s
+    tile, and each operand's orientation and copy width, read in place
+    (the backward's dy wᵀ and xᵀ dy views too).  Pure: reads only shapes,
+    strides, dtypes and data pointers, so it answers for CPU and meta
+    tensors; the C side launches that instance and refuses one it does not
+    have."""
+    rows = simt_rows(x.shape[0], x.shape[1], w.shape[2], sms)
+    x_axis, x_copy = _operand(x, 1, 2)
+    w_axis, w_copy = _operand(w, 2, 1)
+    return SimtPlan(rows, simt_threads(rows), x_axis, w_axis, x_copy,
+                    w_copy)
+
+
+def simt_threads(rows: int) -> int:
+    """Threads of the SIMT instance of ``rows`` C rows: rows / 8 x 16, an
+    8 x 8 register tile each; 128 of 2 x 8 at :data:`SIMT_MIN_ROWS`."""
+    return rows // (2 if rows == SIMT_MIN_ROWS else 8) * (SIMT_BN // 8)
 
 
 def tile_rows(rows: int) -> int:
@@ -144,20 +214,25 @@ class _GroupedMatmul(torch.autograd.Function):
 def _product(x: torch.Tensor, w: torch.Tensor, backward: bool
              ) -> torch.Tensor:
     """x (E,C,D) @ w (E,D,F) by one launch on :func:`route`'s kernel (the
-    tensor cores' on :func:`plan`'s tiles and persistent blocks), counted
-    with the forward's launches or the backward's."""
+    tensor cores' on :func:`plan`'s tiles and persistent blocks, the SIMT
+    kernel on :func:`plan_simt`'s), counted with the forward's launches or
+    the backward's."""
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if E > _MAX_GRID or -(-F // _BN) > _MAX_GRID:
+    if E > _MAX_GRID or -(-F // SIMT_BN) > _MAX_GRID:
         raise ValueError(f"grouped_matmul grid too large: E {E}, F {F}")
     r = route(x, w)
-    tiles = ()                  # the tensor-core route's plan
+    sms = _build.sm_count(x.device.index)
     if r == "wgmma":
-        n, _, blocks = plan(E, C, F, _build.sm_count(x.device.index))
+        n, _, blocks = plan(E, C, F, sms)
         tiles = (n, blocks)
+    else:
+        p = plan_simt(x, w, sms)
+        tiles = (p.rows, p.threads, int(p.x_axis == "k"), int(p.x_copy == 16),
+                 int(p.w_axis == "k"), int(p.w_copy == 16))
     lib = _build.library()
     global launches, bwd_launches
     with torch.cuda.device(x.device):
@@ -182,8 +257,9 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     :func:`route_bwd`'s route: two launches of the tensor-core kernel on
     x, w and dy in place (persistent blocks on :func:`plan_bwd`'s tiles;
     dw on a second stream, so that it fills the SMs dx's last tiles
-    leave), or of the SIMT kernel on the transposed views; each output
-    one accumulation in a fixed order.  CPU tensors run
+    leave), or of the SIMT kernel on the transposed views, read in place
+    (no transposed copy); each output one accumulation in a fixed order.
+    CPU tensors run
     :func:`~repro_torch.kernels.grouped_matmul.ref.grouped_matmul_bwd_ref`."""
     _check(x, w)
     E, C, D = x.shape

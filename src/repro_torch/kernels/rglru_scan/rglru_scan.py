@@ -8,7 +8,8 @@ CUDA tensors launch the hand-written kernel in ``csrc/rglru_scan.cu``
 instance cannot run); CPU tensors run
 :func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`.  Under grad the CUDA
 call is an autograd node whose backward is :func:`rglru_bwd`, one launch
-of ``csrc/rglru_scan_bwd.cu`` on :func:`grid_bwd`'s grid.
+of ``csrc/rglru_scan_bwd.cu`` on :func:`grid_bwd`'s grid, its checkpoints
+in shared memory or in :func:`bwd_workspace`'s tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ THREADS = 128              # a block: one chain warp, three that move data
 _MAX_GRID = 65535          # gridDim.y limit (batch)
 _BWD_ENTRY = {torch.float32: "repro_rglru_bwd_f32",
               torch.bfloat16: "repro_rglru_bwd_bf16"}
+# the backward's instance (csrc/rglru_scan_bwd.cu): strips of 32 channels
+# (a chain warp, a lane a channel, three mover warps), chunks of 4 KB of
+# one array, h checkpointed at each chunk's start in shared memory up to
+# 8 KB of checkpoints, past that in a global tensor
+BWD_STRIP = 32
+BWD_THREADS = 128
+BWD_CHUNK_BYTES = 4096
+BWD_CKPT_BYTES = 8192
 
 launches = 0               # kernel launches since the last reset
 bwd_launches = 0           # the backward's launches (one a call)
@@ -60,11 +69,34 @@ def grid(shape, dtype: torch.dtype):
     return (-(-D // STRIP), B), THREADS
 
 
+def chunk_bwd(dtype: torch.dtype) -> int:
+    """Time steps a backward block stages and walks at once: 4 KB of one
+    array of its strip (csrc/rglru_scan_bwd.cu's TCH: 64 in bf16, 32 in
+    fp32)."""
+    if dtype not in _BWD_ENTRY:
+        raise TypeError(f"rglru takes fp32 or bf16, got {dtype}")
+    return BWD_CHUNK_BYTES // (BWD_STRIP * torch.finfo(dtype).bits // 8)
+
+
 def grid_bwd(shape, dtype: torch.dtype):
-    """((strips, batch), threads a block) of the backward's launch: the
-    forward's strips (:func:`grid`), a lane a channel."""
-    (strips, B), _ = grid(shape, dtype)
-    return (strips, B), STRIP
+    """((strips of :data:`BWD_STRIP` channels, batch), threads a block) of
+    the backward's launch for a of ``shape`` (B,T,D) and ``dtype``;
+    raises for what the kernel does not take.  Independent of T."""
+    chunk_bwd(dtype)
+    B, _, D = shape
+    return (-(-D // BWD_STRIP), B), BWD_THREADS
+
+
+def bwd_workspace(shape, dtype: torch.dtype):
+    """The shape (B, chunks, D) of the backward's fp32 checkpoint tensor,
+    h at the start of each of :func:`chunk_bwd`'s chunks, for a of
+    ``shape`` (B,T,D); None where a block's checkpoints fit in its
+    :data:`BWD_CKPT_BYTES` of shared memory.  Pure: shape and dtype."""
+    B, T, D = shape
+    chunks = -(-T // chunk_bwd(dtype))
+    if chunks * BWD_STRIP * 4 <= BWD_CKPT_BYTES:
+        return None
+    return (B, chunks, D)
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -137,9 +169,10 @@ def rglru_bwd(a: torch.Tensor, b: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(da, db) of :func:`rglru` for the gradients dh of h and dh_last of
     h_T (None: zeros), in a's dtype.  CUDA tensors launch
-    ``csrc/rglru_scan_bwd.cu`` (h recomputed in fp32, then the reverse
-    scan), two calls giving the same bits; CPU tensors run
-    :func:`~repro_torch.kernels.rglru_scan.ref.rglru_bwd_ref`."""
+    ``csrc/rglru_scan_bwd.cu`` once (h checkpointed a chunk at a time,
+    recomputed, then the reverse scan; a, b and dh read through their
+    (batch, time) strides), two calls giving the same bits; CPU tensors
+    run :func:`~repro_torch.kernels.rglru_scan.ref.rglru_bwd_ref`."""
     _check(a, b)
     if a.device.type == "cpu":
         return rglru_bwd_ref(a, b, dh, dh_last)
@@ -151,14 +184,19 @@ def rglru_bwd(a: torch.Tensor, b: torch.Tensor,
     dev = a.device
     dh = (torch.zeros(a.shape, dtype=a.dtype, device=dev) if dh is None
           else dh.to(a.dtype))
-    dh_last = (torch.zeros((B, D), dtype=torch.float32, device=dev)
-               if dh_last is None else dh_last.float())
-    a, b, dh, dh_last = map(_build.dense, (a, b, dh, dh_last))
+    dh_last = _build.dense(
+        torch.zeros((B, D), dtype=torch.float32, device=dev)
+        if dh_last is None else dh_last.float())
+    a, b, dh = (t if t.stride(-1) == 1 else t.contiguous()
+                for t in (a, b, dh))
     da, db = (torch.empty(a.shape, dtype=a.dtype, device=dev)
               for _ in range(2))
     if B * T * D == 0:
         return da, db
-    hws = torch.empty((B, T, D), dtype=torch.float32, device=dev)
+    ws = bwd_workspace(a.shape, a.dtype)
+    ckpt = (torch.empty(ws, dtype=torch.float32, device=dev)
+            if ws is not None else None)
+    vec = all(map(_vec_ok, (a, b, dh)))
     (strips, _), threads = grid_bwd(a.shape, a.dtype)
     lib = _build.library()
     global bwd_launches
@@ -166,7 +204,9 @@ def rglru_bwd(a: torch.Tensor, b: torch.Tensor,
         bwd_launches += 1
         rc = getattr(lib, _BWD_ENTRY[a.dtype])(
             a.data_ptr(), b.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
-            hws.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, D, strips,
-            threads, _build.current_stream(dev.index))
+            None if ckpt is None else ckpt.data_ptr(), da.data_ptr(),
+            db.data_ptr(), B, T, D, strips, threads, a.stride(0),
+            a.stride(1), b.stride(0), b.stride(1), dh.stride(0),
+            dh.stride(1), int(vec), _build.current_stream(dev.index))
     _build.check(rc, "rglru backward")
     return da, db

@@ -39,16 +39,23 @@ import sys
 
 # (kernel, shape, dtype, what): rwkv6-3b at B4 T1024 (training) and B1
 # T1000; recurrentgemma-2b at B4 T1024; granite-moe-3b-a800m's expert
-# products at B4 S1024 (1056 rows an expert)
+# products at B4 S1024 (1056 rows an expert); each in bf16 and fp32 (K6's
+# fp32 products on the SIMT route)
 ROWS = [("wkv6_bwd", (4, 1024, 40, 64), "bfloat16", "rwkv6-3b training"),
         ("wkv6_bwd", (1, 1000, 40, 64), "bfloat16", "rwkv6-3b"),
         ("wkv6_bwd", (4, 1024, 40, 64), "float32", "rwkv6-3b training"),
         ("wkv6_bwd", (1, 1000, 40, 64), "float32", "rwkv6-3b"),
         ("rglru_bwd", (4, 1024, 2560), "bfloat16",
          "recurrentgemma-2b training"),
+        ("rglru_bwd", (4, 1024, 2560), "float32",
+         "recurrentgemma-2b training"),
         ("grouped_matmul_bwd", (40, 1056, 1536, 512), "bfloat16",
          "granite-moe-3b-a800m gate/up"),
         ("grouped_matmul_bwd", (40, 1056, 512, 1536), "bfloat16",
+         "granite-moe-3b-a800m down"),
+        ("grouped_matmul_bwd", (40, 1056, 1536, 512), "float32",
+         "granite-moe-3b-a800m gate/up"),
+        ("grouped_matmul_bwd", (40, 1056, 512, 1536), "float32",
          "granite-moe-3b-a800m down")]
 # relative to the largest |gradient| of each output: bf16 rounds each
 # output once (2^-9); fp32 sums in other orders

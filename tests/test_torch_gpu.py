@@ -733,6 +733,49 @@ def test_grouped_matmul_idle_expert_gives_zeros(cuda, dtype):
     _gmm_close(got, grouped_matmul_ref(x, w), D, dtype)
 
 
+# the SIMT kernel's instances: rows 16 ... 128 a block in steps of 8
+SIMT_ROWS = list(range(16, 129, 8))
+SIMT_LAYOUTS = {"contiguous": ("k", "mn"), "x transposed": ("mn", "mn"),
+                "w transposed": ("k", "k"), "both transposed": ("mn", "k")}
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", sorted(SIMT_LAYOUTS))
+@pytest.mark.parametrize("rows", SIMT_ROWS)
+def test_grouped_matmul_simt_every_instance(cuda, rows, layout, dtype):
+    """Each SIMT instance (rows a block) with x and w each in both
+    orientations, read in place: C ragged (rows - 3; 13 for 16), D 40 (two
+    and a half 16-deep stages), F 136 (a second, ragged 128-column tile;
+    132 for contiguous bf16, whose odd width keeps it off the tensor cores
+    and takes element copies of w), E half the SMs so that the grid fills
+    the card at that tile: plan_simt()'s tile and orientations, one launch
+    on the SIMT route, the plain version's tolerance, two calls bitwise."""
+    E, C, D = -(-_sms(cuda) // 2), max(13, rows - 3), 40
+    F = 132 if dtype == "bfloat16" and layout == "contiguous" else 136
+    x_axis, w_axis = SIMT_LAYOUTS[layout]
+    # a transposed x is a slice of (E, D, rows): its K stride stays a
+    # multiple of 16 bytes at a ragged C
+    x = (_randn((E, C, D), dtype, cuda, 30) if x_axis == "k"
+         else _randn((E, D, rows), dtype, cuda, 30)[:, :, :C].transpose(1, 2))
+    w = (_randn((E, D, F), dtype, cuda, 31) if w_axis == "mn"
+         else _randn((E, F, D), dtype, cuda, 31).transpose(1, 2))
+    assert gmm.route(x, w) == "simt"
+    p = gmm.plan_simt(x, w, _sms(cuda))
+    assert (p.rows, p.threads, p.x_axis, p.w_axis) == (
+        rows, gmm.simt_threads(rows), x_axis, w_axis)
+    assert p.w_copy == (2 if F == 132 else 16) and p.x_copy == 16
+    before, routes = gmm.launches, dict(gmm.routes)
+    got = gmm.grouped_matmul(x, w)
+    assert gmm.launches == before + 1
+    assert gmm.routes == {**routes, "simt": routes["simt"] + 1}
+    assert torch.equal(got, gmm.grouped_matmul(x, w))
+    _gmm_close(got, grouped_matmul_ref(x, w), D, dtype)
+
+
 def _moe_smoke(arch, dtype):
     from repro_torch.configs import registry
     from repro_torch.models import moe
@@ -1297,16 +1340,33 @@ def test_wkv6_autograd_on_card(cuda, dtype):
     assert torch.equal(gu, want[4])
 
 
+# B, T, D, dh_last given: recurrentgemma-2b's training and serving
+# shapes, T around the backward's chunk (chunk_bwd: 64 steps in bf16, 32
+# in fp32) and around the 8-step unroll of its forward walk, T = 4096 + 5
+# (checkpoints past the shared memory's 64 chunks: the global tensor in
+# both dtypes), and ragged strips (D 5 and 2568: a strip of 5 or 8 of its
+# 32 channels; D 5 takes element copies)
+RGLRU_BWD_CASES = [
+    (4, 1024, 2560, True), (1, 1000, 2560, True), (2, 77, 2568, True),
+    (3, 1, 16, True), (1, 9, 5, True), (4, 1024, 2560, False),
+    (2, 1, 5, False), (3, "chunk-1", 2568, True), (2, "chunk", 5, False),
+    (1, "chunk+1", 2560, False), (4, "chunk+1", 2568, True),
+    (1, 4096 + 5, 2568, True), (2, 4096 + 5, 5, False),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,T,D", [(4, 1024, 2560), (1, 1000, 2560),
-                                   (2, 77, 2568), (3, 1, 16), (1, 9, 5)])
-def test_rglru_bwd_kernel_matches_plain(cuda, B, T, D, dtype):
-    """Every strip (ragged D) and T around the 8-step load batch: against
-    the plain version (the same fp32 h chain: bitwise), two calls
-    bitwise."""
+@pytest.mark.parametrize("B,T,D,last", RGLRU_BWD_CASES)
+def test_rglru_bwd_kernel_matches_plain(cuda, B, T, D, last, dtype):
+    """Every strip (ragged D), T around the chunk and past the shared
+    checkpoints, dh_last given or None: one launch a call, bitwise equal
+    to the plain version (the same fp32 h chain), two calls bitwise."""
+    if isinstance(T, str):
+        T = scan.chunk_bwd(DTYPES[dtype]) + {"chunk-1": -1, "chunk": 0,
+                                             "chunk+1": 1}[T]
     a = torch.sigmoid(_randn((B, T, D), dtype, cuda, 100 + T))
     b, dh = (_randn((B, T, D), dtype, cuda, 101 + T + i) for i in range(2))
-    dh_last = _randn((B, D), "float32", cuda, 103 + T)
+    dh_last = _randn((B, D), "float32", cuda, 103 + T) if last else None
     before = scan.bwd_launches
     got = scan.rglru_bwd(a, b, dh, dh_last)
     again = scan.rglru_bwd(a, b, dh, dh_last)
@@ -1315,6 +1375,49 @@ def test_rglru_bwd_kernel_matches_plain(cuda, B, T, D, dtype):
     for g, g2, w in zip(got, again, want):
         assert torch.equal(g, g2)
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("view", ["strided", "misaligned"])
+def test_rglru_bwd_reads_views_in_place(cuda, dtype, view):
+    """a, b and dh as channel slices of wider tensors: read through their
+    (batch, time) strides by 16-byte copies, or by element copies where
+    the slice starts one element past a 16-byte boundary; the same bits as
+    on contiguous copies."""
+    B, T, D = 2, 150, 2560
+    lo = 0 if view == "strided" else 1
+    wide = [_randn((B, T, D + 64), dtype, cuda, 150 + i) for i in range(3)]
+    wide[0] = torch.sigmoid(wide[0])
+    a, b, dh = (t[..., lo:lo + D] for t in wide)
+    assert all(scan._vec_ok(t) == (view == "strided") for t in (a, b, dh))
+    got = scan.rglru_bwd(a, b, dh, None)
+    want = scan.rglru_bwd(*(t.contiguous() for t in (a, b, dh)), None)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_bwd_allocates_no_time_workspace(cuda, dtype):
+    """recurrentgemma-2b's training shape: the call allocates da and db
+    and nothing of the size of a (B,T,D) fp32 tensor (the checkpoints fit
+    in shared memory); at T 4096 + 5 it allocates the (B, chunks, D)
+    checkpoint tensor of bwd_workspace() and no more."""
+    for B, T, D in ((4, 1024, 2560), (2, 4096 + 5, 2560)):
+        a = torch.sigmoid(_randn((B, T, D), dtype, cuda, 160))
+        b, dh = (_randn((B, T, D), dtype, cuda, 161 + i) for i in range(2))
+        last = _randn((B, D), "float32", cuda, 163)
+        ws = scan.bwd_workspace(a.shape, a.dtype)
+        assert (ws is None) == (T == 1024)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        got = scan.rglru_bwd(a, b, dh, last)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated(cuda) - base
+        outs = sum(t.numel() * t.element_size() for t in got)
+        ckpt = 0 if ws is None else 4 * math.prod(ws)
+        assert grew <= outs + ckpt + (1 << 20), (B, T, D, grew, outs, ckpt)
+        del got, a, b, dh
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1370,6 +1473,38 @@ def test_grouped_matmul_bwd_kernel_matches_plain(cuda, E, C, D, F, dtype):
     xt = x.transpose(1, 2).contiguous().transpose(1, 2)
     assert all(torch.equal(a, b) for a, b in
                zip(gmm.grouped_matmul_bwd(xt, w, dy), got))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", SIMT_ROWS)
+def test_grouped_matmul_bwd_simt_every_instance(cuda, rows, dtype):
+    """The backward's two SIMT products at each instance, on the views
+    the wrapper passes (no transposed copy): dx = dy wᵀ (both
+    K-contiguous) on C rows a tile, dw = xᵀ dy (xᵀ M-contiguous by element
+    copies, D odd; dy N-contiguous) on D rows; C, D ragged (rows - 3,
+    rows - 5), F 136, E one an SM so that both grids fill the card; one
+    launch each on the SIMT route, the plain version's tolerance, two
+    calls bitwise."""
+    E, C, D, F = _sms(cuda), max(13, rows - 3), max(11, rows - 5), 136
+    x = _randn((E, C, D), dtype, cuda, 150) * 0.5
+    w = _randn((E, D, F), dtype, cuda, 151) * D ** -0.5
+    dy = _randn((E, C, F), dtype, cuda, 152)
+    assert gmm.route_bwd(x, w) == "simt"
+    pdx = gmm.plan_simt(dy, w.transpose(1, 2), _sms(cuda))
+    pdw = gmm.plan_simt(x.transpose(1, 2), dy, _sms(cuda))
+    assert pdx.rows == pdw.rows == rows
+    assert (pdx.x_axis, pdx.w_axis, pdx.x_copy, pdx.w_copy) == ("k", "k",
+                                                                16, 16)
+    assert (pdw.x_axis, pdw.w_axis, pdw.x_copy, pdw.w_copy) == (
+        "mn", "mn", x.element_size(), 16)
+    before = dict(gmm.bwd_routes)
+    got = gmm.grouped_matmul_bwd(x, w, dy)
+    again = gmm.grouped_matmul_bwd(x, w, dy)
+    assert {r: gmm.bwd_routes[r] - n for r, n in before.items()} == {
+        "wgmma": 0, "simt": 4}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held(got, grouped_matmul_bwd_ref(x, w, dy), dtype,
+          f"grouped_matmul_bwd SIMT rows {rows}")
 
 
 # one C for each tile height the backward's dx can pick (tile_rows: 8 to

@@ -324,3 +324,101 @@ def test_plan_forward_tiles_and_blocks(E, C, F, sms):
     assert tgmm.plan_bwd(0, E, C, F, 8, sms) == tgmm.plan(E, C, F, sms)
     assert tgmm.plan_bwd(1, E, 8, C, F, sms) \
         == tgmm.plan(E, C, F, sms, tgmm.tile_rows64)
+
+
+def _t(shape, dtype=torch.float32):
+    return _meta(shape, dtype)
+
+
+# x, w, (x's contiguous axis, w's, x's copy bytes, w's, rows a block):
+# the forward contiguous (olmoe-1b-7b S1000, fp32), x a transposed view
+# (bf16), w a transposed view, the backward's dy wᵀ and xᵀ dy views at
+# granite-moe-3b-a800m's training shapes (fp32: both products SIMT),
+# misaligned slices (element copies), strides that are not unit on either
+# axis, a broadcast x (expert stride 0), odd widths, C <= 16
+PLAN_SIMT = [
+    (_t((64, 160, 2048)), _t((64, 2048, 1024)), ("k", "mn", 16, 16, 80)),
+    (_t((64, 2048, 160), torch.bfloat16).transpose(1, 2),
+     _t((64, 2048, 1024), torch.bfloat16), ("mn", "mn", 16, 16, 80)),
+    (_t((64, 160, 2048)), _t((64, 1024, 2048)).transpose(1, 2),
+     ("k", "k", 16, 16, 80)),
+    (_t((40, 1056, 512)), _t((40, 1536, 512)).transpose(1, 2),
+     ("k", "k", 16, 16, 120)),
+    (_t((40, 1056, 1536)).transpose(1, 2), _t((40, 1056, 512)),
+     ("mn", "mn", 16, 16, 128)),
+    (_t((40, 1056, 1536)), _t((40, 512, 1536)).transpose(1, 2),
+     ("k", "k", 16, 16, 120)),
+    (_t((40, 1056, 512)).transpose(1, 2), _t((40, 1056, 1536)),
+     ("mn", "mn", 16, 16, 128)),
+    (_t((40, 24, 96)), _t((40, 96, 88))[:, :, 1:73], ("k", "mn", 16, 4, 16)),
+    (_t((8, 16, 100), torch.bfloat16)[:, :, :96],
+     _t((8, 96, 64), torch.bfloat16), ("k", "mn", 2, 16, 16)),
+    (_t((4, 40, 128))[:, :, ::2], _t((4, 64, 72)), ("k", "mn", 4, 16, 16)),
+    (_t((1, 16, 64), torch.bfloat16).expand(8, 16, 64),
+     _t((8, 64, 64), torch.bfloat16), ("k", "mn", 16, 16, 16)),
+    (_t((40, 17, 100), torch.bfloat16), _t((40, 100, 7), torch.bfloat16),
+     ("k", "mn", 2, 2, 16)),
+    (_t((64, 8, 2048)), _t((64, 2048, 1024)), ("k", "mn", 16, 16, 16)),
+]
+
+
+@pytest.mark.parametrize("x,w,want", PLAN_SIMT)
+def test_plan_simt_reads_each_orientation_in_place(x, w, want):
+    """plan_simt() names each operand's contiguous axis (K, or C for x
+    and F for w) and its copy width (16 bytes, or the element size where
+    the axis is misaligned or not of unit stride) from the strides and
+    the pointer alone, for the views the backward passes too (dy wᵀ: both
+    K-contiguous; xᵀ dy: both M/N-contiguous): no operand is copied.  The
+    tile: C in equal tiles of at most 128 rows, in steps of 8."""
+    p = tgmm.plan_simt(x, w, 132)
+    assert (p.x_axis, p.w_axis, p.x_copy, p.w_copy, p.rows) == want
+    assert p.threads == tgmm.simt_threads(p.rows)
+    assert p.threads == (128 if p.rows == 16 else p.rows * 2)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_plan_simt_tiles_cover_ragged_edges(sms):
+    """simt_rows() covers any C with its tiles (no empty tile, fewer than
+    8 padded rows a tile where the first split fills the card), 16 rows
+    at C <= 16, and splits C further while E x row tiles x F tiles leaves
+    SMs idle, down to 16 rows; a multiple of 8 in [16, 128] always, one
+    the source compiles.  Pure: shapes and the SM count."""
+    for E in (1, 3, 40, 64):
+        for C in list(range(1, 300, 7)) + [1056, 2592, 4096]:
+            for F in (7, 128, 136, 1024):
+                rows = tgmm.simt_rows(E, C, F, sms)
+                tiles = -(-C // rows)
+                assert rows % 8 == 0 and 16 <= rows <= 128
+                assert (tiles - 1) * rows < C <= tiles * rows or C < rows
+                blocks = E * tiles * -(-F // tgmm.SIMT_BN)
+                first = max(16, -(-(-(-C // -(-C // 128))) // 8) * 8)
+                if C <= 16:
+                    assert rows == 16
+                elif E * -(-C // first) * -(-F // tgmm.SIMT_BN) >= sms:
+                    assert rows == first and tiles * rows - C < 8 * tiles
+                else:
+                    assert blocks >= sms or rows == 16
+                    assert rows <= first
+
+
+def test_plan_simt_matches_the_source():
+    """The planner's instances and constants are the SIMT kernel's
+    (csrc/grouped_matmul_simt.cu): 128-column tiles, one instance for each
+    row count the planner picks (16 to 128 in steps of 8) on rows / 8 x 16
+    threads (128 at 16 rows), no atomics; the C side plans nothing."""
+    import re
+    from pathlib import Path
+    simt = (Path(tgmm.__file__).resolve().parents[2] / "csrc"
+            / "grouped_matmul_simt.cu").read_text()
+    assert int(re.search(r"constexpr int BN = (\d+);", simt).group(1)) \
+        == tgmm.SIMT_BN
+    cases = re.search(r"#define REPRO_SIMT_ROWS\(CASE\)(.*?)\n\n", simt,
+                      re.S).group(1)
+    rows = sorted(int(n) for n in re.findall(r"CASE\((\d+)\)", cases))
+    assert rows == list(range(tgmm.SIMT_MIN_ROWS, tgmm.SIMT_MAX_ROWS + 1, 8))
+    assert {tgmm.simt_rows(E, C, 1024, 132) for E in (1, 64)
+            for C in range(1, 1200)} == set(rows)
+    assert "TM = ROWS == 16 ? 2 : 8;" in simt
+    assert "THREADS = ROWS / TM * (BN / 8)" in simt
+    assert "simt_rows" not in simt and "sm_count" not in simt
+    assert not re.search(r"\batomic\w*\s*\(", simt)     # no atomics

@@ -153,19 +153,35 @@ def test_rglru_vector_copies_need_aligned_strides():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D", [(4, 1024, 2560), (1, 1000, 2560),
-                                   (2, 77, 2568), (3, 1, 5)])
-def test_rglru_bwd_grid_is_the_forward_strips(B, T, D, dtype):
-    """The backward keeps the forward's strip layout: the same (strips,
-    batch) grid, one lane a channel of a strip (csrc/rglru_scan_bwd.cu's
-    STRIP), independent of T."""
+                                   (2, 77, 2568), (3, 1, 5),
+                                   (2, 4096 + 5, 2560)])
+def test_rglru_bwd_plan_matches_the_source(B, T, D, dtype):
+    """The backward's grid_bwd(): strips of BWD_STRIP channels (grid x;
+    batch y) of BWD_THREADS threads, independent of T; chunk_bwd(): 4 KB
+    of one array of a strip; bwd_workspace(): None while a block's fp32
+    checkpoints (one a chunk and channel) fit in BWD_CKPT_BYTES of shared
+    memory, else the (B, chunks, D) tensor, never a (B,T,D) one; each
+    constant csrc/rglru_scan_bwd.cu's, and no atomics there."""
     a = torch.empty((B, T, D), dtype=dtype, device="meta")
     (strips, batch), threads = tscan.grid_bwd(a.shape, a.dtype)
-    assert ((strips, batch), tscan.STRIP) == (tscan.grid(a.shape,
-                                                         a.dtype)[0],
-                                              threads)
-    assert strips * threads >= D > (strips - 1) * threads
+    assert (batch, threads) == (B, tscan.BWD_THREADS)
+    assert strips * tscan.BWD_STRIP >= D > (strips - 1) * tscan.BWD_STRIP
+    assert tscan.grid_bwd((B, 7 * T + 3, D), dtype) == ((strips, B),
+                                                         threads)
+    tch = tscan.chunk_bwd(dtype)
+    assert tch * tscan.BWD_STRIP * a.element_size() == tscan.BWD_CHUNK_BYTES
+    chunks = -(-T // tch)
+    ws = tscan.bwd_workspace(a.shape, dtype)
+    fits = chunks * tscan.BWD_STRIP * 4 <= tscan.BWD_CKPT_BYTES
+    assert ws == (None if fits else (B, chunks, D))
+    assert (ws is None) == (T < 4096)
     src = (Path(tscan.__file__).resolve().parents[2] / "csrc"
            / "rglru_scan_bwd.cu").read_text()
     consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
-    assert int(consts["STRIP"]) == tscan.STRIP
+    assert int(consts["SW"]) == tscan.BWD_STRIP
+    assert int(consts["CHUNK_BYTES"]) == tscan.BWD_CHUNK_BYTES
+    assert int(consts["CKPT_BYTES"]) == tscan.BWD_CKPT_BYTES
+    assert 32 + 32 * int(consts["MOVERS"]) == tscan.BWD_THREADS
     assert not re.search(r"\batomic\w*\s*\(", src)     # no atomics
+    with pytest.raises(TypeError):
+        tscan.grid_bwd(a.shape, torch.float16)
