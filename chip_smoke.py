@@ -490,6 +490,38 @@ GMM_ROWS = [
 # full 128-column block and one whose second warpgroup lies past F
 GMM_INSTANCES = [(2, n, 1088, 192) for n in range(8, 257, 8)]
 GMM_MAIN = GMM_ROWS[0]
+# the floors of the redesigned kernels (NVIDIA H100 80GB HBM3 at 700 W),
+# by (kernel, row, dtype): ms, or (n, "torch.bmm"), at most n times
+# torch.bmm's ms on the same operands in the same run; a row slower than
+# its floor fails its phase (phase a's K6 rows, phase j's backward rows)
+FLOORS = {("grouped_matmul", "olmoe-1b-7b S1000 gate", "float32"):
+          (1.5, "torch.bmm"),
+          ("grouped_matmul", "odd widths", "bfloat16"): 0.0158,
+          ("wkv6_bwd", "rwkv6-3b training", "bfloat16"): 2.0,
+          ("wkv6_bwd", "rwkv6-3b", "bfloat16"): 1.0,
+          ("rglru_bwd", "recurrentgemma-2b training", "bfloat16"): 0.15,
+          ("rglru_bwd", "recurrentgemma-2b training", "float32"): 0.20,
+          ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
+           "bfloat16"): 0.26,
+          ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
+           "bfloat16"): 0.24,
+          ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
+           "float32"): (1.5, "torch.bmm"),
+          ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
+           "float32"): (1.5, "torch.bmm")}
+
+
+def hold_to_floor(kernel: str, what: str, dt: str, row) -> None:
+    """Raises where ``row`` (its ``ms``; its ``library_ms`` for a floor
+    relative to torch.bmm) is slower than its floor in FLOORS."""
+    floor = FLOORS.get((kernel, what, dt))
+    if floor is None:
+        return
+    limit = (floor if isinstance(floor, float)
+             else floor[0] * row["library_ms"])
+    if not row["ms"] <= limit:
+        raise AssertionError(f"{kernel} {what} {dt}: {row['ms']:.5f} ms, "
+                             f"floor {limit:.5f} ms ({floor})")
 
 
 def simt_attention(torch, q, k, v, causal, win):
@@ -783,12 +815,8 @@ def phase_kernels(torch, dev, mm, rms, fa, wkv, scan, gm):
             raise AssertionError(f"grouped_matmul {row['case']}: no launch "
                                  f"on the {route} route")
         row["route"] = route
+        hold_to_floor("grouped_matmul", what, dt, row)
         if dtype == torch.float32:
-            if not row["ms"] <= SIMT_BMM_FLOOR * row["library_ms"]:
-                raise AssertionError(f"grouped_matmul {row['case']} fp32: "
-                                     f"{row['ms']:.4f} ms, floor "
-                                     f"{SIMT_BMM_FLOOR} x torch.bmm's "
-                                     f"{row['library_ms']:.4f}")
             entries["grouped_matmul_simt"] = row
         if case == GMM_MAIN:
             entries["grouped_matmul"] = row
@@ -2099,25 +2127,6 @@ FAMILY_BWD_INSTANCES = [
     ("grouped_matmul_bwd", (3, 40, 48, 32), "instances dx N40 dw N64"),
     ("grouped_matmul_bwd", (3, 100, 96, 40), "instances dx N104 dw N128"),
     ("grouped_matmul_bwd", (2, 150, 160, 72), "instances dx N152 dw N192")]
-# the floors of the backward kernels' redesign at the training shapes
-# (ms, NVIDIA H100 at 700 W), by (kernel, row, dtype): a row slower than
-# its floor fails the phase
-BWD_FLOOR_MS = {("wkv6_bwd", "rwkv6-3b training", "bfloat16"): 2.0,
-                ("wkv6_bwd", "rwkv6-3b", "bfloat16"): 1.0,
-                ("rglru_bwd", "recurrentgemma-2b training", "bfloat16"): 0.15,
-                ("rglru_bwd", "recurrentgemma-2b training", "float32"): 0.20,
-                ("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
-                 "bfloat16"): 0.26,
-                ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
-                 "bfloat16"): 0.24}
-# the floors of K6's SIMT route against torch.bmm timed in the same run,
-# as the most the kernel may take for each ms of torch.bmm's: phase a's
-# fp32 forward row and phase j's fp32 backward rows
-SIMT_BMM_FLOOR = 1.5
-SIMT_BMM_ROWS = {("grouped_matmul_bwd", "granite-moe-3b-a800m gate/up",
-                  "float32"),
-                 ("grouped_matmul_bwd", "granite-moe-3b-a800m down",
-                  "float32")}
 # what each backward kernel of phase j is, for the kernels line
 BWD_DESIGN = {
     "wkv6_bwd": "walk (forward: a cp.async ring a warp, fp32 checkpoints "
@@ -2130,14 +2139,16 @@ BWD_DESIGN = {
                  "read in place); pass 1 keeps h at each chunk's start as "
                  "an fp32 checkpoint in shared memory (a global "
                  "(B, chunks, D) tensor past 8 KB), pass 2 recomputes a "
-                 "chunk's h in registers and walks g back, da and db in "
-                 "coalesced rows; no (B,T,D) workspace",
+                 "chunk's h in registers and walks g back, da and db into "
+                 "shared memory, stored by the movers a chunk behind as "
+                 "16-byte rows; no (B,T,D) workspace",
     "grouped_matmul_bwd": "wgmma, persistent (one block an SM), one group "
                           "in flight, dx tiles in 8-row steps, dw on a "
                           "second stream; epilogue by stmatrix and TMA "
                           "stores; fp32 and odd widths on the SIMT kernel "
-                          "(8 x 8 register tiles, a cp.async ring, dy wT "
-                          "and xT dy views read in place)"}
+                          "(16-, 80- or 128-row tiles, 8 x 8 register "
+                          "tiles, a cp.async ring, dy wT and xT dy views "
+                          "read in place)"}
 
 
 def _time_plain(torch, fn, flush) -> float:
@@ -2257,16 +2268,7 @@ def family_backward_rows(torch, dev, wkv, scan, gm, sweep):
             res = row(kernel, shape, case, dt, err, lambda: fn(*args),
                       lambda: plain(*args), args[0].element_size(),
                       library=ttb.library(torch, kernel, args), extra=extra)
-            floor = BWD_FLOOR_MS.get((kernel, what, dt))
-            if floor is not None and not res["ms"] <= floor:
-                raise AssertionError(f"{kernel} {case} {names[dt]}: "
-                                     f"{res['ms']:.4f} ms, floor {floor}")
-            if (kernel, what, dt) in SIMT_BMM_ROWS and not (
-                    res["ms"] <= SIMT_BMM_FLOOR * res["library_ms"]):
-                raise AssertionError(f"{kernel} {case} {names[dt]}: "
-                                     f"{res['ms']:.4f} ms, floor "
-                                     f"{SIMT_BMM_FLOOR} x torch.bmm's "
-                                     f"{res['library_ms']:.4f}")
+            hold_to_floor(kernel, what, dt, res)
             entries.setdefault(kernel, res)
             del args
     del flush

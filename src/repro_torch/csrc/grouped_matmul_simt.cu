@@ -15,28 +15,34 @@
 // rate.
 //
 // Design: the wrapper plans each launch (grouped_matmul.plan_simt):
-// output tiles of ``rows`` C rows (C split into equal tiles of at most
-// 128, in steps of 8: 2 x 80 at olmoe's C 160, 9 x 120 at granite's
-// 1056; smaller where the grid would not fill the SMs, at least 16) by
-// 128 F columns, on rows / 8 x 16 threads that each keep an 8 x 8 fp32
-// register tile (16-row tiles: 128 threads of 2 x 8).
+// output tiles of ``rows`` C rows, 16, 80 or 128 (the smallest that holds
+// C's equal split into tiles of at most 128: 2 x 80 at olmoe's C 160,
+// 9 x 128 at granite's 1056; smaller where the grid would not fill the
+// SMs) by 128 F columns, on rows / 8 x 16 threads that each keep an 8 x 8
+// fp32 register tile (16-row tiles: 128 threads of 2 x 8).  Other heights
+// in steps of 8 measured no faster where they fit C more closely.
 // The expert rides grid axis z and the row tiles grid axis x, so the
 // blocks that share one expert's weight column tile run next to each
 // other.  The contraction walks in 16-deep stages through a ring of 3
 // raw stages in dynamic shared memory, filled by 16-byte cp.async.cg
 // copies along each operand's contiguous axis (zero-filled past the
-// ragged edges of C, D and F), or by element copies where that axis is
-// misaligned or not of unit stride; both orientations of each operand
-// are read in place: x K-contiguous (the forward, dx's dy) or
-// M-contiguous (dw's x^T view), w N-contiguous (the forward, dw's dy)
-// or K-contiguous (dx's w^T view).  Each landed stage is staged once into
+// ragged edges of C, D and F), or where that axis is misaligned or not of
+// unit stride by 4-byte cp.async copies an element (a bf16 element's
+// aligned word), so that in both types a stage's copies are in flight
+// while the FMAs of the stages before it run; both orientations of each
+// operand are read in place: x K-contiguous (the forward, dx's dy) or
+// M-contiguous (dw's x^T view), w N-contiguous (the forward, dw's dy) or
+// K-contiguous (dx's w^T view).  Each landed stage is staged once into
 // the one fp32 layout the FMA loop reads (bf16 becomes fp32 there),
 // transposed where K was contiguous: two block barriers a stage, one
 // before the FMAs read it, one before the next stage overwrites it.
 // Measured slower on the card: a second fp32 stage in flight (the shared
 // memory of a third block an SM at 80 rows), FMA loops that read the
 // ring in each orientation with no staging (32 registers of A a 4-k
-// block, spills), and rings of 4 or 5 stages.
+// block, spills), rings of 4 or 5 stages (6 at 16 rows: no faster), a
+// second FMA loop in the 80- and 128-row instances, and the element
+// walks kept in shared memory; element copies as blocking bf16 loads, or
+// with a division a stage, made the narrow products slower.
 //
 // The backward's dx = dy w^T and dw = x^T dy run here on the views the
 // wrapper passes, read in place (no transposed copy).  Each output is one
@@ -70,18 +76,51 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
   }
 }
 
+// A thread's walk over a block of elements n wide (c < n the fast
+// index, r the slow one): consecutive threads on consecutive c, each
+// thread's next element NT further.  Made once a block (two divisions)
+// and packed in two registers (c | r << 16, dc | dr << 16; n, dc, c < 2^8
+// and r, dr <= NT), walked each stage without a division.
+struct Walk {
+  uint32_t at, step;
+};
+
+template <int NT>
+__device__ __forceinline__ Walk walk(int n, int tid) {
+  n = max(n, 1);
+  return {static_cast<uint32_t>(tid % n | tid / n << 16),
+          static_cast<uint32_t>(NT % n | NT / n << 16)};
+}
+
+// f(c, r) for each element of the walk's n-wide block with r < o
+template <typename Fn>
+__device__ __forceinline__ void elts(const Walk& w, int n, int o, Fn&& f) {
+  const int dc = w.step & 0xffff, dr = w.step >> 16;
+  for (int c = w.at & 0xffff, r = w.at >> 16; r < o;) {
+    f(c, r);
+    c += dc;
+    r += dr;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+  }
+}
+
 // One operand of a block, A (x: M = C rows, K = D) or B (w: K = D, N =
 // F): its expert's base, the strides of its M (or N) and K axes, their
 // extents; ``kc``: K is the contiguous axis (the ring holds rows of K,
 // pitch KP), else M (or N) is (rows of BK); ``vec``: 16-byte copies
 // along that axis (unit stride, the other strides and the base 16-byte
-// aligned), else element copies.
+// aligned), else element copies, each thread's over the block's rows of
+// M (or N) found by ``rows``.
 template <typename T>
 struct Operand {
   const T* p;
   long long smn, sk;
   int nmn, nk;
   bool kc, vec;
+  Walk rows;
 };
 
 template <typename T>
@@ -92,8 +131,9 @@ struct Elt {
 
 // One stage (BK of K from k0) of an operand's EXT rows or columns from
 // mn0 -> the ring slot ``raw``, in the operand's own orientation and
-// type, by thread ``tid`` of NT; zeros past the ragged edges.  Rows of K
-// sit KP apart, so that 16-byte reads of consecutive rows hit other banks.
+// type, by thread ``tid`` of NT; 16-byte copies zero-fill past the ragged
+// edges.  Rows of K sit KP apart, so that 16-byte reads of consecutive
+// rows hit other banks.
 template <typename T, int EXT, int NT>
 __device__ __forceinline__ void load_stage(T* raw, const Operand<T>& op,
                                            int mn0, int k0, int tid) {
@@ -126,69 +166,29 @@ __device__ __forceinline__ void load_stage(T* raw, const Operand<T>& op,
       }
     }
   } else {
-    // element copies of the tile's part inside the operand (vm x vk),
-    // consecutive threads along the contiguous axis, a batch of loads
-    // issued before their stores (a 4-byte cp.async each in fp32) so that
-    // their latencies overlap: rows of K a thread's k (tid % BK) in 8 rows
-    // at once, rows of M (or N) a thread's column in all BK of its k.
-    // The rest of the tile holds zeros: its rows past the operand
-    // (zero_rows, once) and here, in the last stage, its k past it.
+    // element copies, 4 bytes each (so asynchronous in both types), of
+    // the tile's part inside the operand (vm x vk) into words: rows of K
+    // BK + 1 words apart (conflict-free), or rows of M (or N) of EXT words;
+    // consecutive threads along the contiguous axis, each thread a few
+    // elements (elts' walk).  A bf16 element's copy is the aligned 4-byte
+    // word that holds it (its other half, a neighbour in the same
+    // allocation, is never used): stage_elt picks the half.
+    uint32_t* words = reinterpret_cast<uint32_t*>(raw);
     const int vm = max(0, min(EXT, op.nmn - mn0));
     const int vk = max(0, min(BK, op.nk - k0));
-    auto copy = [&](int m, int k, T& v) {
-      const T* src = op.p + (mn0 + m) * op.smn + (k0 + k) * op.sk;
-      if constexpr (sizeof(T) == 4)
-        hopper::cp_async4(raw + (op.kc ? m * KP + k : k * EXT + m), src, 4);
-      else
-        v = *src;
+    auto copy = [&](int m, int k) {
+      const uintptr_t src = reinterpret_cast<uintptr_t>(
+          op.p + (mn0 + m) * op.smn + (k0 + k) * op.sk);
+      hopper::cp_async4(words + (op.kc ? m * (BK + 1) + k : k * EXT + m),
+                        reinterpret_cast<const void*>(src & ~uintptr_t(3)),
+                        4);
     };
     if (op.kc) {
-      constexpr int RP = NT / BK;         // rows a pass
-      const int k = tid % BK;
-      for (int m0 = tid / BK; m0 < vm; m0 += 8 * RP) {
-        T v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (m0 + u * RP < vm && k < vk) copy(m0 + u * RP, k, v[u]);
-        if constexpr (sizeof(T) != 4) {
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int m = m0 + u * RP;
-            if (m < vm && k < vk) raw[m * KP + k] = v[u];
-          }
-        }
-      }
-      if (vk < BK && k >= vk)
-        for (int m = tid / BK; m < vm; m += RP) raw[m * KP + k] = T(0.f);
+      for (int i = tid; i < vm * BK; i += NT)
+        if (i % BK < vk) copy(i / BK, i % BK);
     } else {
-      for (int m = tid; m < vm; m += NT) {
-        T v[BK];
-#pragma unroll
-        for (int k = 0; k < BK; ++k)
-          if (k < vk) copy(m, k, v[k]);
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-          if (k >= vk)
-            raw[k * EXT + m] = T(0.f);
-          else if constexpr (sizeof(T) != 4)
-            raw[k * EXT + m] = v[k];
-        }
-      }
+      elts(op.rows, vm, vk, copy);
     }
-  }
-}
-
-// Zeros in every ring slot's rows (or columns) of an element-copied
-// operand past its extent: its element copies never write them.
-template <typename T, int EXT, int SLOT, int NT>
-__device__ __forceinline__ void zero_rows(T* raw, const Operand<T>& op,
-                                          int mn0, int tid) {
-  constexpr int KP = Elt<T>::KP;
-  const int vm = max(0, min(EXT, op.nmn - mn0));
-  for (int i = tid; i < STAGES * EXT * BK; i += NT) {
-    const int s = i / (EXT * BK), m = i % (EXT * BK) / BK, k = i % BK;
-    if (m >= vm)
-      raw[s * SLOT + (op.kc ? m * KP + k : k * EXT + m)] = T(0.f);
   }
 }
 
@@ -230,6 +230,40 @@ __device__ __forceinline__ void stage(const T* raw, float* comp, bool kc,
   }
 }
 
+// A landed stage of an element-copied operand (load_stage's words) ->
+// fp32 [BK][EXT] rows m < vm: a bf16 element is the half of its word that
+// its address names; zeros at k >= vk (the last stage's edge).  Rows (or
+// columns) m >= vm are left as they are: they reach only outputs past C
+// (or F), which are never stored.  Consecutive threads on consecutive m,
+// conflict-free (rows of K are BK + 1 words apart).
+template <typename T, int EXT, int NT>
+__device__ __forceinline__ void stage_elt(const uint32_t* words, float* comp,
+                                          const Operand<T>& op, int mn0,
+                                          int k0, int tid) {
+  const int vm = max(0, min(EXT, op.nmn - mn0));
+  const int vk = max(0, min(BK, op.nk - k0));
+  // the parity of an element's index, from the low bits alone
+  const unsigned odd = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(op.p) / sizeof(T));
+  elts(op.rows, vm, BK, [&](int m, int k) {
+    float v = 0.f;
+    if (k < vk) {
+      const uint32_t u = words[op.kc ? m * (BK + 1) + k : k * EXT + m];
+      if constexpr (sizeof(T) == 4) {
+        v = __uint_as_float(u);
+      } else {
+        const bool high =
+            (odd + static_cast<unsigned>(mn0 + m) *
+                       static_cast<unsigned>(op.smn) +
+             static_cast<unsigned>(k0 + k) * static_cast<unsigned>(op.sk)) &
+            1u;
+        v = __uint_as_float(high ? u & 0xffff0000u : u << 16);
+      }
+    }
+    comp[k * EXT + m] = v;
+  });
+}
+
 // four consecutive outputs of a row: one 16-byte (fp32) or 8-byte (bf16)
 // store where the row allows, else element by element up to ``left``
 __device__ __forceinline__ void store4(float* p, float4 v, int left,
@@ -259,7 +293,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, int left,
   }
 }
 
-// The instance of ROWS output rows a block (16 ... 128 in steps of 8):
+// The instance of ROWS output rows a block (16, 80 or 128):
 // ROWS / TM x 16 threads, each a TM x 8 register tile (TM 8; 2 at 16
 // rows, so that a small grid's blocks spread each stage's copies and FMAs
 // over four warps, not one); the ring of STAGES raw stages of both
@@ -270,12 +304,16 @@ template <typename T, int ROWS>
 struct Cfg {
   static constexpr int TM = ROWS == 16 ? 2 : 8;
   static constexpr int THREADS = ROWS / TM * (BN / 8);
-  static constexpr int RAW_A = ROWS * Elt<T>::KP;   // >= BK * ROWS
-  static constexpr int RAW_B = BN * Elt<T>::KP;
+  // bytes of a row (or column) of an operand in a ring slot: KP elements,
+  // or BK + 1 words of element copies
+  static constexpr int ROW = Elt<T>::KP * sizeof(T) > (BK + 1) * 4
+                                 ? Elt<T>::KP * sizeof(T)
+                                 : (BK + 1) * 4;
+  static constexpr int RAW_A = ROWS * ROW;           // bytes
+  static constexpr int RAW_B = BN * ROW;
   static constexpr int SLOT = RAW_A + RAW_B;
   static constexpr int COMP = BK * (ROWS + BN);     // fp32
-  static constexpr size_t SMEM =
-      STAGES * SLOT * sizeof(T) + COMP * sizeof(float);
+  static constexpr size_t SMEM = STAGES * SLOT + COMP * sizeof(float);
   static_assert(ROWS % 8 == 0 && ROWS >= 16 && ROWS <= 128, "rows");
 };
 
@@ -286,6 +324,45 @@ __device__ __forceinline__ int tile_row(int ty, int i) {
   if constexpr (TM == 8)
     return i < 4 ? 4 * ty + i : ROWS / 2 + 4 * ty + i - 4;
   return ty + i * ROWS / 2;
+}
+
+// One stage's FMAs of a thread's TM x 8 tile, k in order: its rows from
+// ``ca`` and, of its two 4-column groups (columns 4 tx and 64 + 4 tx), the
+// first NB from ``cw`` (1 on 16-row tiles whose second 64 columns lie
+// past F: half the FMAs of a narrow product's stage).
+template <int ROWS, int TM, int NB>
+__device__ __forceinline__ void fma_stage(float (&acc)[TM][8],
+                                          const float* ca, const float* cw) {
+#pragma unroll
+  for (int k = 0; k < BK; ++k) {
+    float av[TM];
+    if constexpr (TM == 8) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ca + k * ROWS);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(ca + k * ROWS + ROWS / 2);
+      const float a8[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = a8[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = ca[k * ROWS + i * ROWS / 2];
+    }
+    float bv[4 * NB];
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(cw + k * BN + h * BN / 2);
+      bv[4 * h] = b.x;
+      bv[4 * h + 1] = b.y;
+      bv[4 * h + 2] = b.z;
+      bv[4 * h + 3] = b.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * NB; ++j)
+        acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
 }
 
 // out[e] = x[e] @ w[e] for the (ROWS x BN) tile (blockIdx.x, blockIdx.y)
@@ -304,31 +381,42 @@ gmm_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
   using Cf = Cfg<T, ROWS>;
   constexpr int NT = Cf::THREADS, TM = Cf::TM;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  float* comp =
-      reinterpret_cast<float*>(smem + STAGES * Cf::SLOT * sizeof(T));
+  float* comp = reinterpret_cast<float*>(smem + STAGES * Cf::SLOT);
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int col0 = blockIdx.y * BN;
   const long long e = blockIdx.z;
-  const Operand<T> A{x + e * sxe, sxc, sxd, C, D, a_kc != 0, a_vec != 0};
-  const Operand<T> B{w + e * swe, swf, swd, F, D, b_kc != 0, b_vec != 0};
+  Operand<T> A{x + e * sxe, sxc, sxd, C, D, a_kc != 0, a_vec != 0};
+  Operand<T> B{w + e * swe, swf, swd, F, D, b_kc != 0, b_vec != 0};
+  if (!A.vec) A.rows = walk<NT>(min(ROWS, C - row0), tid);
+  if (!B.vec) B.rows = walk<NT>(min(BN, F - col0), tid);
   const int steps = (D + BK - 1) / BK;
 
   auto load = [&](int s) {
-    T* slot = ring + (s % STAGES) * Cf::SLOT;
-    load_stage<T, ROWS, NT>(slot, A, row0, s * BK, tid);
-    load_stage<T, BN, NT>(slot + Cf::RAW_A, B, col0, s * BK, tid);
+    unsigned char* slot = smem + (s % STAGES) * Cf::SLOT;
+    load_stage<T, ROWS, NT>(reinterpret_cast<T*>(slot), A, row0, s * BK,
+                            tid);
+    load_stage<T, BN, NT>(reinterpret_cast<T*>(slot + Cf::RAW_A), B, col0,
+                          s * BK, tid);
   };
   auto to_comp = [&](int s) {
-    const T* slot = ring + (s % STAGES) * Cf::SLOT;
-    stage<T, ROWS, NT>(slot, comp, A.kc, tid);
-    stage<T, BN, NT>(slot + Cf::RAW_A, comp + BK * ROWS, B.kc, tid);
+    const unsigned char* slot = smem + (s % STAGES) * Cf::SLOT;
+    float* cb = comp + BK * ROWS;
+    if (A.vec)
+      stage<T, ROWS, NT>(reinterpret_cast<const T*>(slot), comp, A.kc, tid);
+    else
+      stage_elt<T, ROWS, NT>(reinterpret_cast<const uint32_t*>(slot), comp,
+                             A, row0, s * BK, tid);
+    if (B.vec)
+      stage<T, BN, NT>(reinterpret_cast<const T*>(slot + Cf::RAW_A), cb,
+                       B.kc, tid);
+    else
+      stage_elt<T, BN, NT>(
+          reinterpret_cast<const uint32_t*>(slot + Cf::RAW_A), cb, B, col0,
+          s * BK, tid);
   };
 
-  if (!A.vec) zero_rows<T, ROWS, Cf::SLOT, NT>(ring, A, row0, tid);
-  if (!B.vec) zero_rows<T, BN, Cf::SLOT, NT>(ring + Cf::RAW_A, B, col0, tid);
   // one commit group a stage: stage s has landed at a fixed count
 #pragma unroll
   for (int s = 0; s < STAGES; ++s) {
@@ -349,6 +437,7 @@ gmm_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ty = tid / 16, tx = tid % 16;
   const float* ca = comp + tile_row<ROWS, TM>(ty, 0);
   const float* cw = comp + BK * ROWS + 4 * tx;
+  const bool two_halves = col0 + BN / 2 < F;   // else no output past 64
   for (int t = 0; t < steps; ++t) {
     // stage t + 1 has landed, every thread's stage t is in fp32, and no
     // thread still reads raw t's slot
@@ -356,30 +445,10 @@ gmm_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
     if (t + STAGES < steps) load(t + STAGES);
     hopper::cp_async_commit();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[TM];
-      if constexpr (TM == 8) {
-        const float4 a0 = *reinterpret_cast<const float4*>(ca + k * ROWS);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(ca + k * ROWS + ROWS / 2);
-        const float a8[8] = {a0.x, a0.y, a0.z, a0.w,
-                             a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = a8[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = ca[k * ROWS + i * ROWS / 2];
-      }
-      const float4 b0 = *reinterpret_cast<const float4*>(cw + k * BN);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(cw + k * BN + BN / 2);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    if (TM == 8 || two_halves)   // (the 8-row tiles keep one loop)
+      fma_stage<ROWS, TM, 2>(acc, ca, cw);
+    else if constexpr (TM == 2)
+      fma_stage<ROWS, TM, 1>(acc, ca, cw);
     __syncthreads();                     // every thread's FMAs of stage t
     if (t + 1 < steps) to_comp(t + 1);
   }
@@ -436,10 +505,7 @@ bool vec_ok(const void* p, long long s_c, long long s_o, int n_o,
          reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-#define REPRO_SIMT_ROWS(CASE)                                            \
-  CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)         \
-  CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120)      \
-  CASE(128)
+#define REPRO_SIMT_ROWS(CASE) CASE(16) CASE(80) CASE(128)
 
 // The wrapper's plan (grouped_matmul.plan_simt): ``rows`` a block on
 // ``threads`` threads, each operand's contiguous axis (kc: K) and copy

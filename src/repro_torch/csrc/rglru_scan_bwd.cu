@@ -34,15 +34,19 @@
 // Pass 2 walks the chunks backward over a, b and dh: the chain recomputes
 // the chunk's h_{t-1} from its checkpoint into registers (the chunk
 // unrolled, the same rounding, so the same bits), then walks g backward
-// through the chunk and stores da and db, a step's row of the strip with
-// one coalesced store each.  Both passes are one sequence of 2 x chunks
-// ring loads, handed over by one block barrier a chunk.  Products and sums
+// through the chunk, da and db into one of two shared chunk buffers,
+// which the movers store a chunk behind as 16-byte rows (element stores
+// where D or the strip's edge do not allow them), so the chain issues no
+// global store.  Both passes are one sequence of 2 x chunks ring loads,
+// handed over by one block barrier a chunk (and one more for the last
+// chunk's stores).  Products and sums
 // are rounded separately (no fused multiply-add), as the plain torch
 // version rounds them, so fp32 and bf16 results equal it bitwise; the
 // chains are never split across time.  No lane reads another's chain and
 // there are no atomics: deterministic.  Measured slower on the card:
 // strips of 64 bf16 channels (128-byte rows, two chain warps, 160 blocks:
-// half the bytes in flight an SM), 8-slot rings, 64-step chunks.
+// half the bytes in flight an SM), 8-slot rings, 64-step chunks, and the
+// chain storing da and db itself, a step's row at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +85,9 @@ struct Cfg {
   static constexpr int ARR = TCH * SW;                // one array's chunk
   static constexpr int SLOT = 3 * ARR;                // a, b, dh
   static constexpr int CKPT = CKPT_BYTES / (SW * 4);  // chunks kept
-  static constexpr size_t SMEM = STAGES * SLOT * sizeof(T) + CKPT_BYTES;
+  static constexpr int OUT = 2 * ARR;                 // da, db of a chunk
+  static constexpr size_t SMEM =
+      (STAGES * SLOT + 2 * OUT) * sizeof(T) + CKPT_BYTES;
   static_assert(SW % E == 0, "a strip is whole 16-byte rows");
 };
 
@@ -116,16 +122,40 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ts,
   }
 }
 
+// One chunk's da and db (rows of SW in ``out``: da, then db) -> the
+// strip's rows from step t0 of the (B,T,D) outputs ``da``, ``db``, by
+// mover thread ``t``: 16-byte stores where the row's piece is whole and
+// D keeps rows 16-byte aligned, else element stores; rows past T and
+// channels past D are not written.
+template <typename T>
+__device__ __forceinline__ void store_rows(const T* out, T* da, T* db,
+                                           int t0, int T_len, int D,
+                                           int cols, int t) {
+  using C = Cfg<T>;
+  const int steps = min(C::TCH, T_len - t0);
+  const bool vec = D % C::E == 0;
+  for (int i = t; i < 2 * steps * C::PR; i += MOVER_THREADS) {
+    const int arr = i / (steps * C::PR), r = i % (steps * C::PR);
+    const int s = r / C::PR, e = (r % C::PR) * C::E;
+    const T* src = out + arr * C::ARR + s * SW + e;
+    T* dst = (arr ? db : da) + static_cast<long long>(t0 + s) * D + e;
+    if (vec && e + C::E <= cols) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int c = 0; c < C::E && e + c < cols; ++c) dst[c] = src[c];
+    }
+  }
+}
+
 // Pass 2 on one chunk of ``steps`` steps for lane ``lane``: h_{t-1}
 // recomputed from the checkpoint ``h`` into registers, then the reverse
-// scan from ``carry``, da and db stored a step at a time (``live``: the
-// lane's channel lies inside D); returns the carry into the chunk before.
+// scan from ``carry``, da and db into ``out`` (rows of SW: da, then db)
+// for the movers to store; returns the carry into the chunk before.
 // FULL: steps == TCH, no step is masked.
 template <typename T, bool FULL>
 __device__ __forceinline__ float backward_chunk(const T* slot, int steps,
-                                                float h, float carry, T* da,
-                                                T* db, long long D,
-                                                bool live, int lane) {
+                                                float h, float carry, T* out,
+                                                int lane) {
   using C = Cfg<T>;
   const T* av = slot + lane;
   const T* bv = slot + C::ARR + lane;
@@ -142,10 +172,8 @@ __device__ __forceinline__ float backward_chunk(const T* slot, int steps,
   for (int s = C::TCH - 1; s >= 0; --s) {
     if (FULL || s < steps) {
       const float g = __fadd_rn(to_f32(dv[s * SW]), carry);
-      if (live) {
-        db[s * D] = from_f32<T>(g);
-        da[s * D] = from_f32<T>(__fmul_rn(g, hv[s]));
-      }
+      out[C::ARR + s * SW + lane] = from_f32<T>(g);
+      out[s * SW + lane] = from_f32<T>(__fmul_rn(g, hv[s]));
       carry = __fmul_rn(to_f32(av[s * SW]), g);
     }
   }
@@ -168,7 +196,8 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr int TCH = C::TCH;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
-  float* cks = reinterpret_cast<float*>(smem + STAGES * C::SLOT * sizeof(T));
+  T* outs = ring + STAGES * C::SLOT;     // two chunks' da, db
+  float* cks = reinterpret_cast<float*>(outs + 2 * C::OUT);
 
   const int col0 = blockIdx.x * SW;
   const long long bi = blockIdx.y;
@@ -191,6 +220,14 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       if (!fwd) load_rows<T>(slot + 2 * C::ARR, dp, sdt, t0, T_len, cols,
                              vec, mt);
     };
+    T* dap = da + bi * T_len * static_cast<long long>(D) + col0;
+    T* dbp = db + bi * T_len * static_cast<long long>(D) + col0;
+    // pass 2's item j's da and db, a chunk behind the chain
+    auto store = [&](int j) {
+      if (j >= chunks)
+        store_rows<T>(outs + (j % 2) * C::OUT, dap, dbp,
+                      (items - 1 - j) * TCH, T_len, D, cols, mt);
+    };
     // one commit group an item: item j has landed at a fixed count
 #pragma unroll
     for (int j = 0; j < STAGES - 1; ++j) {
@@ -199,10 +236,13 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
     for (int j = 0; j < items; ++j) {
       hopper::cp_async_wait<STAGES - 2>();
-      __syncthreads();                   // item j landed; j - 1's slot free
+      __syncthreads();   // item j landed; j - 1's slot and outputs done
       if (j + STAGES - 1 < items) load(j + STAGES - 1);
       hopper::cp_async_commit();
+      if (j > 0) store(j - 1);
     }
+    __syncthreads();     // the last item's outputs
+    store(items - 1);
     return;
   }
 
@@ -213,8 +253,6 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const long long cstep = ckg ? D : SW;
   float h = 0.f;
   float carry = live ? dh_last[bi * D + col0 + lane] : 0.f;
-  T* dap = da + bi * T_len * static_cast<long long>(D) + col0 + lane;
-  T* dbp = db + bi * T_len * static_cast<long long>(D) + col0 + lane;
   for (int j = 0; j < items; ++j) {
     __syncthreads();
     const T* slot = ring + (j % STAGES) * C::SLOT;
@@ -230,14 +268,13 @@ rglru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const int c = items - 1 - j;
       const int steps = min(TCH, T_len - c * TCH);
       const float h0 = live || !ckg ? ck[c * cstep] : 0.f;
-      const long long at = static_cast<long long>(c) * TCH * D;
+      T* out = outs + (j % 2) * C::OUT;
       carry = steps == TCH
-          ? backward_chunk<T, true>(slot, steps, h0, carry, dap + at,
-                                    dbp + at, D, live, lane)
-          : backward_chunk<T, false>(slot, steps, h0, carry, dap + at,
-                                     dbp + at, D, live, lane);
+          ? backward_chunk<T, true>(slot, steps, h0, carry, out, lane)
+          : backward_chunk<T, false>(slot, steps, h0, carry, out, lane);
     }
   }
+  __syncthreads();                       // the movers store the last item
 }
 
 template <typename T>

@@ -30,12 +30,13 @@ _ENTRY = {("simt", torch.float32): "repro_grouped_matmul_f32",
 _MAX_GRID = 65535          # gridDim.y / gridDim.z limit (F tiles, experts)
 TILE_M = 128               # the tensor-core kernel's output columns a tile
 # the SIMT kernel's instances (csrc/grouped_matmul_simt.cu): output tiles
-# of SIMT_BN F columns by 16 ... 128 C rows in steps of 8, on rows / 8 x
-# 16 threads of an 8 x 8 register tile each (16 rows: 128 threads of 2 x
-# 8)
+# of SIMT_BN F columns by SIMT_ROWS C rows, on rows / 8 x 16 threads of
+# an 8 x 8 register tile each (16 rows: 128 threads of 2 x 8).  80 rows
+# cover olmoe-1b-7b's C 160 in two tiles with no padding; 128 the rest of
+# a large C (granite-moe-3b-a800m's 1056 in nine tiles measured faster than
+# 120-row tiles with 2% padding); 16 a C of at most 16 and small grids.
 SIMT_BN = 128
-SIMT_MIN_ROWS = 16
-SIMT_MAX_ROWS = 128
+SIMT_ROWS = (16, 80, 128)
 
 launches = 0               # kernel launches since the last reset
 routes = {"wgmma": 0, "simt": 0}      # the same launches, by route
@@ -113,17 +114,15 @@ def _operand(t: torch.Tensor, mn: int, k: int):
 
 
 def simt_rows(E: int, C: int, F: int, sms: int) -> int:
-    """C rows a SIMT block: C split into equal tiles of at most
-    :data:`SIMT_MAX_ROWS`, rounded up to a multiple of 8 (at least
-    :data:`SIMT_MIN_ROWS`); more, smaller tiles while the grid of E x row
-    tiles x F tiles would leave some of the ``sms`` SMs without a block."""
-    tiles = max(1, -(-C // SIMT_MAX_ROWS))
-    while True:
-        rows = max(SIMT_MIN_ROWS, -(-(-(-C // tiles)) // 8) * 8)
-        if (E * -(-C // rows) * -(-F // SIMT_BN) >= sms
-                or rows == SIMT_MIN_ROWS):
-            return rows
-        tiles += 1
+    """C rows a SIMT block: the smallest of :data:`SIMT_ROWS` that holds
+    C's equal split into tiles of at most the largest; a smaller one while
+    the grid of E x row tiles x F tiles would leave some of the ``sms`` SMs
+    without a block, down to the smallest."""
+    q = -(-C // -(-C // SIMT_ROWS[-1])) if C > 0 else 1
+    i = next(i for i, r in enumerate(SIMT_ROWS) if r >= q)
+    while i > 0 and E * -(-C // SIMT_ROWS[i]) * -(-F // SIMT_BN) < sms:
+        i -= 1
+    return SIMT_ROWS[i]
 
 
 def plan_simt(x: torch.Tensor, w: torch.Tensor, sms: int) -> SimtPlan:
@@ -142,8 +141,8 @@ def plan_simt(x: torch.Tensor, w: torch.Tensor, sms: int) -> SimtPlan:
 
 def simt_threads(rows: int) -> int:
     """Threads of the SIMT instance of ``rows`` C rows: rows / 8 x 16, an
-    8 x 8 register tile each; 128 of 2 x 8 at :data:`SIMT_MIN_ROWS`."""
-    return rows // (2 if rows == SIMT_MIN_ROWS else 8) * (SIMT_BN // 8)
+    8 x 8 register tile each; 128 of 2 x 8 at 16 rows."""
+    return rows // (2 if rows == 16 else 8) * (SIMT_BN // 8)
 
 
 def tile_rows(rows: int) -> int:

@@ -343,11 +343,11 @@ PLAN_SIMT = [
     (_t((64, 160, 2048)), _t((64, 1024, 2048)).transpose(1, 2),
      ("k", "k", 16, 16, 80)),
     (_t((40, 1056, 512)), _t((40, 1536, 512)).transpose(1, 2),
-     ("k", "k", 16, 16, 120)),
+     ("k", "k", 16, 16, 128)),
     (_t((40, 1056, 1536)).transpose(1, 2), _t((40, 1056, 512)),
      ("mn", "mn", 16, 16, 128)),
     (_t((40, 1056, 1536)), _t((40, 512, 1536)).transpose(1, 2),
-     ("k", "k", 16, 16, 120)),
+     ("k", "k", 16, 16, 128)),
     (_t((40, 1056, 512)).transpose(1, 2), _t((40, 1056, 1536)),
      ("mn", "mn", 16, 16, 128)),
     (_t((40, 24, 96)), _t((40, 96, 88))[:, :, 1:73], ("k", "mn", 16, 4, 16)),
@@ -369,7 +369,8 @@ def test_plan_simt_reads_each_orientation_in_place(x, w, want):
     the axis is misaligned or not of unit stride) from the strides and
     the pointer alone, for the views the backward passes too (dy wᵀ: both
     K-contiguous; xᵀ dy: both M/N-contiguous): no operand is copied.  The
-    tile: C in equal tiles of at most 128 rows, in steps of 8."""
+    tile: 80 rows at olmoe's C 160 (two, no padding), 128 at granite's
+    1056 (nine), 16 at C <= 16 and where the grid is small."""
     p = tgmm.plan_simt(x, w, 132)
     assert (p.x_axis, p.w_axis, p.x_copy, p.w_copy, p.rows) == want
     assert p.threads == tgmm.simt_threads(p.rows)
@@ -378,33 +379,37 @@ def test_plan_simt_reads_each_orientation_in_place(x, w, want):
 
 @pytest.mark.parametrize("sms", [132, 114, 1])
 def test_plan_simt_tiles_cover_ragged_edges(sms):
-    """simt_rows() covers any C with its tiles (no empty tile, fewer than
-    8 padded rows a tile where the first split fills the card), 16 rows
-    at C <= 16, and splits C further while E x row tiles x F tiles leaves
-    SMs idle, down to 16 rows; a multiple of 8 in [16, 128] always, one
-    the source compiles.  Pure: shapes and the SM count."""
+    """simt_rows() covers any C with its tiles (no empty tile) and always
+    names an instance the source compiles: the smallest that holds C's
+    equal split into tiles of at most the largest, where that grid fills
+    the ``sms`` SMs; else the largest smaller one whose grid does, or the
+    smallest; 16 rows at C <= 16.  Pure: shapes and the SM count."""
     for E in (1, 3, 40, 64):
         for C in list(range(1, 300, 7)) + [1056, 2592, 4096]:
             for F in (7, 128, 136, 1024):
                 rows = tgmm.simt_rows(E, C, F, sms)
                 tiles = -(-C // rows)
-                assert rows % 8 == 0 and 16 <= rows <= 128
+                assert rows in tgmm.SIMT_ROWS
                 assert (tiles - 1) * rows < C <= tiles * rows or C < rows
-                blocks = E * tiles * -(-F // tgmm.SIMT_BN)
-                first = max(16, -(-(-(-C // -(-C // 128))) // 8) * 8)
+                split = -(-C // -(-C // max(tgmm.SIMT_ROWS)))
+                fits = min(r for r in tgmm.SIMT_ROWS if r >= split)
+
+                def blocks(r):
+                    return E * -(-C // r) * -(-F // tgmm.SIMT_BN)
                 if C <= 16:
                     assert rows == 16
-                elif E * -(-C // first) * -(-F // tgmm.SIMT_BN) >= sms:
-                    assert rows == first and tiles * rows - C < 8 * tiles
+                if blocks(fits) >= sms:
+                    assert rows == fits
                 else:
-                    assert blocks >= sms or rows == 16
-                    assert rows <= first
+                    assert rows == max([r for r in tgmm.SIMT_ROWS
+                                        if r < fits and blocks(r) >= sms],
+                                       default=min(tgmm.SIMT_ROWS))
 
 
 def test_plan_simt_matches_the_source():
     """The planner's instances and constants are the SIMT kernel's
     (csrc/grouped_matmul_simt.cu): 128-column tiles, one instance for each
-    row count the planner picks (16 to 128 in steps of 8) on rows / 8 x 16
+    row count the planner picks (SIMT_ROWS, each picked) on rows / 8 x 16
     threads (128 at 16 rows), no atomics; the C side plans nothing."""
     import re
     from pathlib import Path
@@ -415,7 +420,7 @@ def test_plan_simt_matches_the_source():
     cases = re.search(r"#define REPRO_SIMT_ROWS\(CASE\)(.*?)\n\n", simt,
                       re.S).group(1)
     rows = sorted(int(n) for n in re.findall(r"CASE\((\d+)\)", cases))
-    assert rows == list(range(tgmm.SIMT_MIN_ROWS, tgmm.SIMT_MAX_ROWS + 1, 8))
+    assert rows == list(tgmm.SIMT_ROWS)
     assert {tgmm.simt_rows(E, C, 1024, 132) for E in (1, 64)
             for C in range(1, 1200)} == set(rows)
     assert "TM = ROWS == 16 ? 2 : 8;" in simt
