@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-ten phases; any mismatch raises, so the script exits non-zero:
+eleven phases; any mismatch raises, so the script exits non-zero:
 
 (a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
     grouped-matmul kernels against their plain torch versions on the
@@ -91,7 +91,9 @@ ten phases; any mismatch raises, so the script exits non-zero:
     same bits; the GEMM must launch.  It prints the compile time, the
     placement, each migration's recovery_s, the trace's wall time and
     requests/s, each class's device busy time by its reference plan and
-    the phase's peak memory.
+    the phase's peak memory.  This is the rack of the twin
+    ``examples/fleet_torch.py`` with ``--execute``, which phase k does not
+    run again.
 
 (i) training: internlm2-1.8b (configs/internlm2_1_8b.py), the only dense
     model that trains on one card with its AdamW state.  First the backward
@@ -118,7 +120,9 @@ ten phases; any mismatch raises, so the script exits non-zero:
     block route; a checkpoint after step 2 restored bitwise and step 3 taken
     again from it (loss within 1e-3); tokens/s, device busy and idle share
     of a profiled step, the top kernels, one AdamW update's time alone, and
-    peak memory.
+    peak memory, beside the memory planner's estimate
+    (``core/hbmplan.plan_memory(cfg, 4, 1024, 1, 1)`` at the card's
+    capacity), which must call the run feasible.
 
 (j) training the other families: rwkv6-3b, recurrentgemma-2b and
     granite-moe-3b-a800m (olmoe-1b-7b's AdamW state does not fit one
@@ -145,16 +149,36 @@ ten phases; any mismatch raises, so the script exits non-zero:
     non-zero, the exact forward and backward launches per kernel and
     route (K2's backward at the families' widths, K3's at
     recurrentgemma-2b's H10/KV1 Dh256 window 2048 and granite's H24/KV8
-    Dh64, all on the tensor cores), step ms, tokens/s, peak memory and a
-    profiled step's busy time, idle share and top kernels.
+    Dh64, all on the tensor cores), step ms, tokens/s, peak memory (beside
+    the memory planner's estimate, which must call each family feasible)
+    and a profiled step's busy time, idle share and top kernels.  The
+    planner must call olmoe-1b-7b infeasible at the same batch: the reason
+    this phase leaves it out.
+
+(k) the entry points and the tile tuner: first every split of K that the
+    GEMM launches at phase c's fp32 shapes (M 1, 32, 64; the wide decode
+    gemv among them) and every compiled key tile of the tensor-core flash
+    attention at qwen3-8b's S77 and S1000, olmoe-1b-7b's S4096,
+    recurrentgemma-2b's Dh 256 window 2048, granite-moe-3b-a800m's training
+    shape and a 32768-token row, each held to its plain version and timed
+    (``launch/time_tiles.py``), the tuner's rank (``kernels/autotune.py``)
+    printed beside the measured order and its pick beside the fastest.
+    Then the twins of the examples that a user runs first, each through
+    its ``main(argv)`` on the card, in four processes at once (their
+    budgeted CP compiles run on the host): ``quickstart_torch.py`` (its
+    artifact in a temporary directory), ``custom_soc_torch.py``,
+    ``multi_tenant_torch.py`` and ``serve_lm_torch.py --execute --lm
+    rwkv6``; every oracle assert must hold, and the GEMM must launch.  It
+    prints each twin's wall time and its launches by kernel and route.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
 
 Standard output: per-phase wall times, the card's name and power limit
 (the line of ``nvidia-smi --query-gpu=name,power.limit``), a
-``kernel_sweep`` JSON line (every shape of phase a), a
-``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  With
+``kernel_sweep`` JSON line (every shape of phase a), a ``tiles`` JSON line
+(phase k's rows), a ``kernels`` JSON line, and last ``{"ok": true,
+"device": {...}}``.  With
 no CUDA card, or without the port's sources beside it, it exits non-zero
 and prints no result.
 """
@@ -270,6 +294,11 @@ def main() -> int:
           f"{ {a: r[0] for a, r in fam_runs.items()} }, forward launches "
           f"{ {a: r[1] for a, r in fam_runs.items()} }, backward launches "
           f"{ {a: r[2] for a, r in fam_runs.items()} }")
+    t0 = time.perf_counter()
+    tiles, by_path["k"] = phase_entry_points(torch, dev, smi[0], counted)
+    print(f"phase k entry points and tile tuner: "
+          f"{time.perf_counter() - t0:.2f} s, the twins' launches "
+          f"{by_path['k']}")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
     # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
@@ -283,6 +312,17 @@ def main() -> int:
             raise RuntimeError(f"{k['name']} never launched on its path")
         if k["name"] == "matmul":
             k["sum_launches"] = c_sums
+            k["splits"] = [{n: r[n] for n in (
+                "case", "route", "pick", "pick_ms", "best", "best_ms",
+                "pick_measured_rank")} for r in tiles["k1"]]
+        if k["name"] == "flash_attention":
+            # the tensor-core kernel's compiled key tiles, phase k's rows
+            k["instances"] = [{"case": r["case"], "block_k": t["block_k"],
+                               "ms": t["ms"], "default": t["default"],
+                               "bound_ms": r["bound_ms"],
+                               "library_ms": r["library_ms"],
+                               "tuner_pick": r["pick"]}
+                              for r in tiles["k3"] for t in r["tiles"]]
     # the backward kernels, launched by phase i's training steps
     for name, fwd_name in (("rmsnorm_bwd", "rmsnorm"),
                            ("flash_attention_bwd", "flash_attention")):
@@ -335,6 +375,7 @@ def main() -> int:
 
     print(smi[0])
     print(json.dumps({"kernel_sweep": sweep}))
+    print(json.dumps({"tiles": tiles}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2032,6 +2073,7 @@ def phase_train(torch, dev, card, counted, sweep):
         raise AssertionError(f"train loss did not fall: {losses}")
     print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
           f"{peak:.2f} GB [{card}]")
+    plan_beside_peak(cfg.name, TRAIN_B, TRAIN_S, peak, card)
 
     busy, kernels, top = _device_busy_s(torch, lambda: step(
         state[0], state[1], batch))
@@ -2547,6 +2589,7 @@ def family_train(torch, dev, card, arch, counted):
           f"the fastest unprofiled step {wall * 1e3:.3f} ms, "
           f"{tokens / wall:.0f} tokens/s) [{card}]; top kernels (ms) {top}")
     print(json.dumps({"train_family": summary}))
+    plan_beside_peak(arch, B, FAMILY_S, peak, card)
     state = batch = step = None
     torch.cuda.empty_cache()
     return B, fwd, bwd, {n: got_routes[n][1] for n in want_fr}, summary
@@ -2573,7 +2616,143 @@ def phase_families(torch, dev, card, counted, sweep):
         t0 = time.perf_counter()
         runs[arch] = family_train(torch, dev, card, arch, counted)[:4]
         print(f"phase j train {arch}: {time.perf_counter() - t0:.2f} s")
+    # the family this phase leaves out, by the planner's own account
+    from repro_torch.configs import registry
+    from repro_torch.core.hbmplan import plan_memory
+    plan = plan_memory(registry.get_config("olmoe-1b-7b"), FAMILY_B,
+                       FAMILY_S, 1, 1)
+    print(f"memory plan olmoe-1b-7b B{FAMILY_B} S{FAMILY_S}: estimate "
+          f"{plan.total / 1e9:.2f} GB, AdamW moments "
+          f"{plan.est_bytes['adam_m+v(f32)'] / 1e9:.2f} GB, feasible "
+          f"{plan.feasible}: {plan.notes[0]} [{card}]")
+    if plan.feasible:
+        raise AssertionError("the memory planner calls olmoe-1b-7b "
+                             "feasible on one card, which phase j leaves "
+                             "out")
     return runs, entries
+
+
+def plan_beside_peak(arch: str, batch: int, seq: int, peak_gb: float,
+                     card: str):
+    """The memory planner's estimate for ``arch`` at ``batch`` x ``seq``,
+    one replica (``plan_memory`` at the card's capacity), printed beside
+    the peak that its training run measured; raises where the planner
+    calls that run infeasible."""
+    from repro_torch.configs import registry
+    from repro_torch.core.hbmplan import plan_memory
+    plan = plan_memory(registry.get_config(arch), batch, seq, 1, 1)
+    print(f"memory plan {arch} B{batch} S{seq}: estimate "
+          f"{plan.total / 1e9:.2f} GB (remat {plan.remat}, zero1 "
+          f"{plan.zero1}, microbatches {plan.microbatches}), measured peak "
+          f"{peak_gb:.2f} GB, estimate / peak "
+          f"{plan.total / 1e9 / peak_gb:.3f}, feasible {plan.feasible} "
+          f"[{card}]")
+    if not plan.feasible:
+        raise AssertionError(f"the memory planner calls {arch} at B{batch} "
+                             f"S{seq} infeasible, which trained here: "
+                             f"{plan.notes}")
+    return plan
+
+
+# ---------------------------------------------------------------- phase k
+
+# the twins of the examples a user runs first, with their arguments on the
+# card; examples/fleet_torch.py's rack is phase h's
+TWINS = (("quickstart_torch", ["--out"]), ("custom_soc_torch", []),
+         ("multi_tenant_torch", []),
+         ("serve_lm_torch", ["--execute", "--lm", "rwkv6"]))
+COUNTED = {"matmul": "matmul.matmul", "rmsnorm": "rmsnorm.rmsnorm",
+           "flash_attention": "flash_attention.flash_attention",
+           "wkv6": "rwkv_scan.rwkv_scan", "rglru": "rglru_scan.rglru_scan",
+           "grouped_matmul": "grouped_matmul.grouped_matmul"}
+
+
+def run_twin(name: str, argv) -> dict:
+    """One twin's ``main(argv)`` on the card, in a process of its own: its
+    wall time, its standard output and each kernel's launches by route."""
+    import contextlib
+    import importlib
+    import io
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "examples")]
+    import torch
+    counted = {k: importlib.import_module(f"repro_torch.kernels.{m}")
+               for k, m in COUNTED.items()}
+    reset_launches(counted)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        importlib.import_module(name).main(list(argv) + ["--device",
+                                                         "cuda"])
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "stdout": out.getvalue(),
+            "launches": read_launches(counted),
+            "routes": {k: dict(m.routes) for k, m in counted.items()
+                       if hasattr(m, "routes")}}
+
+
+def phase_entry_points(torch, dev, card, counted):
+    """(k) The tile tuner's candidates held and timed, then the twins of
+    the examples on the card.  Returns (the tile rows, each kernel's
+    launches over the twins)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import time_tiles
+    from repro_torch.launch.time_k1k2 import FLUSH_BYTES, warm_up
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    warm_up(torch, dev)
+    reset_launches(counted)
+    t0 = time.perf_counter()
+    tiles = {"card": card,
+             "k1": time_tiles.k1_rows(torch, dev, gen, flush),
+             "k3": time_tiles.k3_rows(torch, dev, gen, flush)}
+    tiles["tile_seconds_fit"] = time_tiles.fit_tile_seconds(tiles["k3"])
+    del flush
+    torch.cuda.empty_cache()
+    picks = sum(r["pick"] == r["fastest"] for r in tiles["k3"])
+    print(f"tiles: {len(tiles['k1'])} K1 rows, every split held; K1's pick "
+          f"the fastest split in "
+          f"{sum(r['pick_measured_rank'] == 0 for r in tiles['k1'])}, pick / "
+          f"fastest {min(r['pick_over_best'] for r in tiles['k1']):.3f}-"
+          f"{max(r['pick_over_best'] for r in tiles['k1']):.3f}; "
+          f"{len(tiles['k3'])} K3 rows, every key tile held, the tuner's "
+          f"pick the fastest in {picks}; key-tile cost fitted to this run "
+          f"{tiles['tile_seconds_fit'] * 1e6:.3f} us; "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            max_workers=len(TWINS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {name: pool.submit(
+            run_twin, name, [a if a != "--out" else f"--out={tmp}/deploy"
+                             for a in argv])
+            for name, argv in TWINS}
+        runs = {name: f.result() for name, f in futures.items()}
+        emitted = sorted(p.name for p in Path(tmp, "deploy").iterdir())
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in counted}
+    for name, r in runs.items():
+        for line in r["stdout"].splitlines():
+            print(f"{name}: {line}")
+        by_route = {k: {q: n for q, n in v.items() if n}
+                    for k, v in r["routes"].items() if any(v.values())}
+        print(f"phase k {name}: {r['wall_s']:.2f} s, launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }, by route "
+              f"{by_route} [{card}]")
+    print(f"phase k: quickstart emitted {emitted} into a temporary "
+          f"directory; twins together {time.perf_counter() - t0:.2f} s")
+    if "schedule.json" not in emitted:
+        raise AssertionError(f"quickstart_torch emitted {emitted}")
+    if launches["matmul"] == 0:
+        raise AssertionError("the twins never launched the GEMM")
+    print(json.dumps({"entry_points": {
+        "card": card, **{name: {k: r[k] for k in ("wall_s", "launches",
+                                                  "routes")}
+                         for name, r in runs.items()}}}))
+    return tiles, launches
 
 
 def _leaves(tree):

@@ -41,10 +41,14 @@
 // are read through 4-D tensor maps (Dh, S, heads, B), so a box never crosses a
 // head or batch edge and rows past S arrive as zeros; boxes are one 64-column,
 // 128-byte swizzle atom wide (Dh 128 is two atoms, Dh 256 four).  Q is loaded
-// once; K/V tiles of BK keys (128 for Dh <= 128; 32 for Dh 256, to keep S and
-// P small beside O) walk a ring of 2 stages (3 at Dh 256) with a full and an
-// empty mbarrier per stage (shared memory 81 KB at Dh 64, 161 KB at Dh 128 and
-// 256).  Per tile a consumer warpgroup runs S = Q K^T (A = Q and B = K both
+// once; K/V tiles of BK keys walk a ring with a full and an empty mbarrier
+// per stage.  BK is a template parameter that the wrapper picks
+// (kernels/flash_attention/flash_attention.py, block_k; the default 128 for
+// Dh <= 128, 32 for Dh 256, to keep S and P small beside O): the instances
+// (Dh, BK) are (64, 64), (64, 128), (128, 64), (128, 128) and (256, 32), and
+// the C entry refuses any other pair.  At Dh <= 128 the ring holds 256 keys
+// (2 stages of 128, 4 of 64), 3 stages of 32 at Dh 256 (shared memory 81 KB
+// at Dh 64, 161 KB at Dh 128 and 256).  Per tile a consumer warpgroup runs S = Q K^T (A = Q and B = K both
 // K-major from shared memory, N = BK, the depth Dh in k16 steps across the
 // atoms), then the online softmax on the accumulator fragment: a row's values
 // lie on the 4 threads of a quad, so two shuffles give its max; log2(e) is
@@ -382,14 +386,15 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int SMEM_LIMIT = 232448;           // per block on an H100
 constexpr int ROW = 128;          // bytes of one swizzled row: 64 bf16
 
-template <int DH>
+template <int DH, int BK_>
 struct Cfg {
   static constexpr int NA = DH / 64;               // swizzle atoms across Dh
-  // keys per tile and K/V ring depth: at Dh 256 O takes 128 registers a
+  // keys per tile and K/V ring depth: 256 keys in flight at Dh <= 128 (the
+  // ring's bytes of the 128-key tile); at Dh 256 O takes 128 registers a
   // thread, and 32-key tiles keep S and P small (64-key tiles spilled
-  // more, and were slower on the card)
-  static constexpr int BK = DH <= 128 ? 128 : 32;
-  static constexpr int STAGES = DH <= 128 ? 2 : 3;
+  // more, and were slower on the card), 3 stages
+  static constexpr int BK = BK_;
+  static constexpr int STAGES = DH <= 128 ? 256 / BK : 3;
   static constexpr int Q_BOX = BQ * ROW;           // one atom of Q
   static constexpr int KV_BOX = BK * ROW;          // one atom of a K/V tile
   static constexpr int Q_BYTES = NA * Q_BOX;
@@ -402,6 +407,7 @@ struct Cfg {
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1);
   static_assert(DH % 64 == 0 && NA <= 4, "Dh 64, 128 or 256");
+  static_assert(BK % 16 == 0 && BK <= 256 && STAGES >= 2, "key tile");
   static_assert(SMEM <= SMEM_LIMIT, "shared memory");
   static_assert(BQ * LDO * 2 <= STAGES * STAGE, "epilogue tile too large");
 };
@@ -472,7 +478,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
 template <int DH, int BK>
 __device__ __forceinline__ void qk_products(float* sacc, const uint8_t* qw,
                                             const uint8_t* kt) {
-  using K = Cfg<DH>;
+  using K = Cfg<DH, BK>;
 #pragma unroll
   for (int a = 0; a < K::NA; ++a) {
     const uint64_t dq = hopper::desc_sw128(qw + a * K::Q_BOX, 16, 1024);
@@ -486,15 +492,14 @@ __device__ __forceinline__ void qk_products(float* sacc, const uint8_t* qw,
 
 // tq, tk, tv: q, k, v as (Dh, S, heads, B) maps, boxes of 64 x BQ (q) or
 // 64 x BK (k, v).  Block (head, query tile from the last, batch).
-template <int DH>
+template <int DH, int BK>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int S, int H, int groups,
                 int causal, int window, float scale_log2) {
-  using K = Cfg<DH>;
-  constexpr int BK = K::BK;
+  using K = Cfg<DH, BK>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -665,11 +670,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 constexpr int MAX_DEVICES = 64;
 
-template <int DH>
+template <int DH, int BK>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
               int S, int H, int KV, const long long* st, int causal,
               int window, float scale, cudaStream_t stream) {
-  using K = Cfg<DH>;
+  using K = Cfg<DH, BK>;
   // once per device: the consumers' 240 registers exist only if ptxas gave
   // every thread its share of the 64K (setmaxnreg redistributes them), and
   // the shared memory above 48 KB must be opted into
@@ -680,11 +685,11 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
     cudaFuncAttributes a;
-    err = cudaFuncGetAttributes(&a, fa_wgmma_kernel<DH>);
+    err = cudaFuncGetAttributes(&a, fa_wgmma_kernel<DH, BK>);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (a.numRegs * THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
       return static_cast<int>(cudaErrorInvalidConfiguration);
-    err = cudaFuncSetAttribute(fa_wgmma_kernel<DH>,
+    err = cudaFuncSetAttribute(fa_wgmma_kernel<DH, BK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                K::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -702,22 +707,28 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
                                     64, K::BK);
   if (rc != 0) return rc;
   const dim3 grid(H, (S + BQ - 1) / BQ, B);
-  fa_wgmma_kernel<DH><<<grid, THREADS, K::SMEM, stream>>>(
+  fa_wgmma_kernel<DH, BK><<<grid, THREADS, K::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, H / KV, causal,
       window, scale * 1.4426950408889634f);    // log2(e) folded in
   return static_cast<int>(cudaGetLastError());
 }
 
+// the compiled (Dh, BK) instances; any other pair is refused
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KV, int Dh, const long long* st, int causal,
-           int window, float scale, void* stream) {
+           int window, float scale, int bk, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64: return launch_dh<64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
-    case 128: return launch_dh<128>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
-    case 256: return launch_dh<256>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (Dh == 64 && bk == 64)
+    return launch_dh<64, 64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+  if (Dh == 64 && bk == 128)
+    return launch_dh<64, 128>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+  if (Dh == 128 && bk == 64)
+    return launch_dh<128, 64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+  if (Dh == 128 && bk == 128)
+    return launch_dh<128, 128>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+  if (Dh == 256 && bk == 32)
+    return launch_dh<256, 32>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace wg
@@ -730,7 +741,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // no window; causal is 0 or 1.  Each returns cudaGetLastError() after the
 // launch, or the error that kept it from launching.  The first two are the
 // SIMT route, the third the wgmma route (bf16, Dh 64, 128 or 256, strides
-// multiples of 8 elements, bases 16-byte aligned).
+// multiples of 8 elements, bases 16-byte aligned), whose `bk` is the key
+// tile of a compiled (Dh, BK) instance.
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int Dh, const long long* st, int causal, int window,
@@ -750,7 +762,7 @@ extern "C" int repro_flash_attention_bf16(
 extern "C" int repro_flash_attention_bf16_wgmma(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int Dh, const long long* st, int causal, int window,
-    float scale, void* stream) {
+    float scale, int bk, void* stream) {
   return wg::launch(q, k, v, o, B, S, H, KV, Dh, st, causal, window, scale,
-                    stream);
+                    bk, stream);
 }

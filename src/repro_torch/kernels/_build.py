@@ -66,9 +66,10 @@ SIGNATURES = {
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(_LL), _I, _I,
                                    ctypes.c_float, _P],
+    # ... the same, then the key tile of a compiled (Dh, BK) instance
     "repro_flash_attention_bf16_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, ctypes.POINTER(_LL), _I, _I,
-                                         ctypes.c_float, _P],
+                                         ctypes.c_float, _I, _P],
     # stage, q, k, v, o, dO, lse, D, dq, dk, dv, B, S, H, KV, Dh, causal,
     # window, scale, stream
     "repro_flash_attention_bwd_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P,

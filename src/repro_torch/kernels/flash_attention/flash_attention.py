@@ -7,6 +7,9 @@ hand-written kernels in ``csrc/flash_attention.cu``, as :func:`route`
 picks before the launch: the tensor-core kernel (``"wgmma"``, bf16 q/k/v
 with Dh 64, 128 or 256 that TMA can read) or the SIMT kernel
 (``"simt"``, everything else), both reading q/k/v through their strides.
+The tensor-core kernel's key tile is compiled per head width
+(:data:`WGMMA_BLOCK_K`); ``block_k`` picks one of them, and without it
+the call launches :data:`DEFAULT_BLOCK_K`'s.
 CPU tensors run the plain versions of
 :mod:`~repro_torch.kernels.flash_attention.ref` (the chunked form beyond
 1024 positions, the exact one below), which autograd differentiates.
@@ -39,6 +42,11 @@ _ENTRY = {("simt", torch.float32): "repro_flash_attention_f32",
           ("wgmma", torch.bfloat16): "repro_flash_attention_bf16_wgmma"}
 HEAD_DIMS = (8, 12, 16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dh
 WGMMA_HEAD_DIMS = (64, 128, 256)                # the wgmma kernels' Dh
+# the wgmma kernel's compiled key tiles by Dh, and the one a call without
+# block_k launches (csrc/flash_attention.cu refuses any other pair)
+WGMMA_BLOCK_K = {64: (64, 128), 128: (64, 128), 256: (32,)}
+DEFAULT_BLOCK_K = {64: 128, 128: 128, 256: 32}
+WGMMA_BLOCK_Q = 128        # the wgmma kernel's query rows a block
 BWD_HEAD_DIMS = HEAD_DIMS                       # the backward kernels' Dh
 _BWD_ENTRY = {("simt", torch.float32): "repro_flash_attention_bwd_f32",
               ("simt", torch.bfloat16): "repro_flash_attention_bwd_bf16",
@@ -105,10 +113,23 @@ def route_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
+def _check_block_k(q: torch.Tensor, block_k: Optional[int]) -> None:
+    Dh = q.shape[-1]
+    if block_k is not None and block_k not in WGMMA_BLOCK_K.get(Dh, ()):
+        raise ValueError(f"no wgmma instance with {block_k}-key tiles at "
+                         f"head width {Dh}: compiled "
+                         f"{WGMMA_BLOCK_K.get(Dh, ())}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """``block_k``: the tensor-core kernel's key tile, one of
+    :data:`WGMMA_BLOCK_K` for q's head width (None: the default); a CUDA
+    call that it is given must take the wgmma route.  CPU tensors check it
+    and run the plain version."""
     _check(q, k, v)
+    _check_block_k(q, block_k)
     if window is not None and window < 0:
         raise ValueError(f"window {window} is negative")
     if q.device.type == "cpu":
@@ -119,17 +140,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, block_k)
+    return _forward(q, k, v, causal, window, block_k)
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, window: Optional[int]) -> torch.Tensor:
+             causal: bool, window: Optional[int],
+             block_k: Optional[int] = None) -> torch.Tensor:
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     r = route(q, k, v)
+    if block_k is not None and r != "wgmma":
+        raise ValueError(f"block_k {block_k} is the wgmma kernel's key tile, "
+                         f"and these operands take the {r} route")
     # grid y: the heads (simt) or the 128-row query tiles (wgmma); z: batch
-    if max(H if r == "simt" else -(-S // 128), B) > _MAX_GRID:
+    if max(H if r == "simt" else -(-S // WGMMA_BLOCK_Q), B) > _MAX_GRID:
         raise ValueError(f"B={B}, S={S}, H={H}: a grid axis exceeds "
                          f"{_MAX_GRID} on the {r} route")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
@@ -138,6 +163,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
+    # the wgmma entry takes the key tile of the instance to launch
+    tile = (() if r == "simt"
+            else (DEFAULT_BLOCK_K[Dh] if block_k is None else block_k,))
     lib = _build.library()
     global launches
     with torch.cuda.device(q.device):
@@ -149,7 +177,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, S, H, KV, Dh, strides, int(causal),
             # a window of S or more masks nothing: clamped, it fits an int
             -1 if window is None else min(int(window), S),
-            1.0 / math.sqrt(Dh), stream)
+            1.0 / math.sqrt(Dh), *tile, stream)
     _build.check(rc, f"flash_attention ({r})")
     return out
 
@@ -160,8 +188,8 @@ class _FlashAttention(torch.autograd.Function):
     the forward's output and its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, block_k):
+        out = _forward(q, k, v, causal, window, block_k)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.window = causal, window
         return out
@@ -171,7 +199,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, ctx.causal,
                                          ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,7 +6,8 @@ route :func:`route` picks before the launch: ``"gemv"`` (M <= 8, B
 16-byte readable), ``"tile"`` (A and B 16-byte readable) or ``"scalar"``
 (the tile kernel with element copies: any strides), with the block tile
 :func:`tile` gives.  K is split into the chunks :func:`plan` gives, summed
-in chunk order by a second kernel (counted in ``sum_launches``).  CPU
+in chunk order by a second kernel (counted in ``sum_launches``); a call
+may name one of :func:`splits` instead (``split``).  CPU
 tensors run :func:`~repro_torch.kernels.matmul.ref.matmul_ref`.  Shapes:
 ``(..., M, K) @ (K, N)`` (leading dims of ``a`` flattened into M), or
 ``(..., M, K) @ (..., K, N)`` with broadcast batch dims.  ``b`` is read
@@ -17,7 +18,7 @@ goes in without a copy.
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -132,16 +133,13 @@ def splits(route: str, M: int, N: int, K: int) -> List[Tuple[int, int]]:
     return out
 
 
-@functools.lru_cache(maxsize=4096)
-def plan(route: str, M: int, N: int, K: int, sms: int,
-         dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
-    """(chunks, chunk length) of the split of K for ``route`` at (M, N,
-    K) on a card of ``sms`` SMs: a function of these alone, so equal shapes
-    sum in equal order.  Picks of :func:`splits` the one that minimises a
-    model of the busiest SM's time: blocks spread over the SMs, each
-    costing its chunk of FMAs (tile) or of weight bytes (gemv) plus a fixed
-    overhead, fewer than three waves of blocks hiding latency worse, plus
-    the partial sums' round trip."""
+def cost(route: str, M: int, N: int, sms: int, dtype: torch.dtype,
+         split: Tuple[int, int]) -> float:
+    """Seconds of the busiest SM that :func:`plan`'s model gives ``split``
+    (chunks, chunk length) at (M, N) on a card of ``sms`` SMs: blocks
+    spread over the SMs, each costing its chunk of FMAs (tile) or of weight
+    bytes (gemv) plus a fixed overhead, fewer than three waves of blocks
+    hiding latency worse, plus the partial sums' round trip."""
     tm, tn = tile(route, M, N)
     if route == "gemv":
         tiles = -(-N // _GEMV_COLS)
@@ -151,16 +149,23 @@ def plan(route: str, M: int, N: int, K: int, sms: int,
         bm, bn = 8 * tm, 16 * tn
         tiles = -(-M // bm) * -(-N // bn)
         per_row = 2 * bm * bn / (_FP32_FLOPS / sms)
+    s, chunk = split
+    waves = -(-tiles * s // sms)
+    t = waves * (chunk + _BLOCK_ROWS) * per_row / _OCCUPANCY.get(waves, 1.0)
+    if s > 1:
+        t += s * M * N * 8 / _SUM_BYTES_PER_S + _SUM_LAUNCH_S
+    return t
 
-    def cost(split):
-        s, chunk = split
-        waves = -(-tiles * s // sms)
-        t = (waves * (chunk + _BLOCK_ROWS) * per_row
-             / _OCCUPANCY.get(waves, 1.0))
-        if s > 1:
-            t += s * M * N * 8 / _SUM_BYTES_PER_S + _SUM_LAUNCH_S
-        return t
-    return min(splits(route, M, N, K), key=cost)
+
+@functools.lru_cache(maxsize=4096)
+def plan(route: str, M: int, N: int, K: int, sms: int,
+         dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(chunks, chunk length) of the split of K for ``route`` at (M, N,
+    K) on a card of ``sms`` SMs: a function of these alone, so equal shapes
+    sum in equal order.  Picks of :func:`splits` the first that minimises
+    :func:`cost`."""
+    return min(splits(route, M, N, K),
+               key=lambda split: cost(route, M, N, sms, dtype, split))
 
 
 def _launch(a3: torch.Tensor, b3: torch.Tensor, out: torch.Tensor, r: str,
@@ -190,8 +195,29 @@ def _launch(a3: torch.Tensor, b3: torch.Tensor, out: torch.Tensor, r: str,
     _build.check(rc, f"matmul ({r})")
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=4096)
+def _listed(route: str, M: int, N: int, K: int) -> frozenset:
+    return frozenset(splits(route, M, N, K))
+
+
+def _check_split(a: torch.Tensor, b: torch.Tensor,
+                 split: Tuple[int, int]) -> None:
+    a3, b3, _ = _operands(a, b)
+    r, (M, K), N = _route3(a3, b3), a3.shape[1:], b3.shape[-1]
+    if tuple(split) not in _listed(r, M, N, K):
+        raise ValueError(f"split {tuple(split)} of K {K} is not one that the "
+                         f"{r} route launches at M {M}, N {N}: "
+                         f"{splits(r, M, N, K)}")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``split``: (chunks, chunk length), one of :func:`splits` for the
+    route these operands take, in place of :func:`plan`'s; CPU tensors
+    check it and run the plain version."""
     _check(a, b)
+    if split is not None:
+        _check_split(a, b, split)
     dev = a.device
     if dev.type == "cpu":
         return matmul_ref(a, b)
@@ -207,5 +233,5 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     r = _route3(a3, b3)
     _launch(a3, b3, out, r,
-            *plan(r, M, N, K, _build.sm_count(dev.index), a.dtype))
+            *(split or plan(r, M, N, K, _build.sm_count(dev.index), a.dtype)))
     return out

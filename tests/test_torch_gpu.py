@@ -293,6 +293,88 @@ def test_flash_attention_wgmma_one_hot_probe(cuda, Dh):
                          f"{want[tuple(i)].item()}" for i in bad[:8]))
 
 
+# every compiled (Dh, key tile) instance of the wgmma kernel
+FA_TILES = [(dh, bk) for dh, bks in sorted(fa.WGMMA_BLOCK_K.items())
+            for bk in bks]
+
+
+@pytest.mark.parametrize("S", [77, 333, 1000])
+@pytest.mark.parametrize("mask", sorted(FA_MASKS))
+@pytest.mark.parametrize("Dh,bk", FA_TILES)
+def test_flash_attention_every_key_tile(cuda, Dh, bk, mask, S):
+    """Each (Dh, key tile) instance that ``block_k`` picks held to the plain
+    version under every mask, at ragged S (77: one part-filled query tile
+    and key tile; 333, 1000: ragged past 64- and 128-key tiles) and GQA 4;
+    the default tile given explicitly launches bitwise what a call without
+    ``block_k`` launches."""
+    causal, win = FA_MASKS[mask]
+    B = 2 if S == 333 else 1
+    q = _randn((B, S, 8, Dh), "bfloat16", cuda, 61)
+    k = _randn((B, S, 2, Dh), "bfloat16", cuda, 62)
+    v = _randn((B, S, 2, Dh), "bfloat16", cuda, 63)
+    before = fa.routes["wgmma"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=win, block_k=bk)
+    assert fa.routes["wgmma"] == before + 1
+    _close(got, attention_ref(q, k, v, causal=causal, window=win), 2e-2,
+           2e-2)
+    if bk == fa.DEFAULT_BLOCK_K[Dh]:
+        assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
+                                                   window=win))
+
+
+@pytest.mark.parametrize("Dh,bk", FA_TILES)
+def test_flash_attention_key_tile_one_hot_probe(cuda, Dh, bk):
+    """The one-hot probe of every key tile (two 64-key tiles, four of 32):
+    each output must be the integer of the (key, column) it reads,
+    bitwise."""
+    S, A = 128, 32.0
+    s = torch.arange(S, device=cuda)
+    sign = torch.where(s < 64, 1.0, -1.0)
+    k = torch.zeros(1, S, 1, Dh, device=cuda)
+    k[0, s, 0, s % 64] = A * sign
+    t = (37 * s + 11) % S
+    q = torch.zeros(1, S, 1, Dh, device=cuda)
+    q[0, s, 0, t % 64] = A * sign[t]
+    v = ((7 * s[:, None] + torch.arange(Dh, device=cuda)) % 255 + 1).float()
+    q, k, v = (x.bfloat16() for x in (q, k, v[None, :, None, :]))
+    got = fa.flash_attention(q, k, v, causal=False, block_k=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v[:, t])
+
+
+def test_flash_attention_block_k_refused_off_the_wgmma_route(cuda):
+    q = _randn((1, 64, 4, 128), "float32", cuda, 64)
+    k = _randn((1, 64, 2, 128), "float32", cuda, 65)
+    with pytest.raises(ValueError, match="simt route"):
+        fa.flash_attention(q, k, k, block_k=128)
+    with pytest.raises(ValueError, match="key tiles"):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16(),
+                           block_k=32)
+
+
+# phase c's 64 x 2560 x 1280 fp32 GEMM (B a column slice of a wider weight)
+PHASE_C_GEMM = (64, 2560, 1280, 640)
+
+
+@pytest.mark.parametrize("split", mm.splits("tile", 64, 1280, 2560))
+def test_matmul_every_split_matches_plain(cuda, split):
+    """Every split of K that ``matmul.splits`` lists for phase c's GEMM,
+    launched through ``matmul(..., split=...)``, held to the plain version
+    at K1's tolerance; plan's split given explicitly launches bitwise what
+    a call without ``split`` launches."""
+    M, K, N, off = PHASE_C_GEMM
+    a, b = _mm_operands(M, K, N, off, "float32")
+    assert mm.route(a, b) == "tile"
+    before = mm.routes["tile"]
+    got = mm.matmul(a, b, split=split)
+    assert mm.routes["tile"] == before + 1
+    want = matmul_ref(a, b)
+    _close(got, want, 1e-4 * math.sqrt(K), 1e-4)
+    if split == mm.plan("tile", M, N, K, torch.cuda.get_device_properties(
+            cuda).multi_processor_count):
+        assert torch.equal(got, mm.matmul(a, b))
+
+
 def test_flash_attention_strided_and_deterministic(cuda):
     """q/k/v as head-slices of one fused projection (strided rows)."""
     qkv = _randn((2, 100, 12, 64), "float32", cuda, 11)

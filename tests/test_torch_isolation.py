@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, the serving entry point
+"""The port stands alone: no module of ``src/repro_torch``, no twin of an
+example (``examples/*_torch.py``) and not ``chip_smoke.py`` imports JAX
+or the JAX package, the serving entry point
 imports with both blocked, and the framework-free modules are copies of
 the JAX package's: the same text, with only the package name changed,
 except that a comment or docstring passage citing the project's change
@@ -52,13 +53,19 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_port_files_exist():
     files = _port_files()
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(files) > len(COPIES)
+    twins = {p.name for p in files if p.parent.name == "examples"}
+    assert twins == {f"{name}_torch.py" for name in (
+        "quickstart", "custom_soc", "multi_tenant", "serve_lm", "fleet",
+        "train_lm")}
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -157,19 +164,32 @@ def test_copy_equals_original(rel):
 # the port's fleet placement is the original but for its device seam: the
 # config's device, the parameters made on it and the engines built on it
 SEAM = ("FleetConfig", "PlanCache.params_for", "SoCInstance.host")
+# the port's memory planner is the original but for its capacity seam:
+# plan_memory takes the capacity (the card's by default), and the
+# original's per-chip constant is gone
+HBM_SEAM = ("plan_memory",)
+HBM_GONE = ("HBM_BYTES",)
 
 
-def _cut_seam(tree: ast.Module) -> dict:
-    """Replace each class or method named in ``SEAM`` by ``pass``; returns
-    the syntax of what was cut, by name."""
+def _cut_seam(tree: ast.Module, seam=SEAM) -> dict:
+    """Replace each class, function or method named in ``seam``, and each
+    module-level assignment to a name in it, by ``pass``; returns the
+    syntax of what was cut, by name."""
     cut = {}
 
     def visit(body, prefix):
         for n, node in enumerate(body):
+            if isinstance(node, ast.Assign) and not prefix:
+                names = [t.id for t in node.targets
+                         if isinstance(t, ast.Name)]
+                if len(names) == 1 and names[0] in seam:
+                    cut[names[0]] = ast.dump(node)
+                    body[n] = ast.Pass()
+                continue
             if not isinstance(node, (ast.ClassDef, ast.FunctionDef)):
                 continue
             name = prefix + node.name
-            if name in SEAM:
+            if name in seam:
                 cut[name] = ast.dump(node)
                 body[n] = ast.Pass()
             elif isinstance(node, ast.ClassDef):
@@ -190,5 +210,30 @@ def test_placement_differs_from_original_only_in_the_device_seam():
         assert port_cut[name] != orig_cut[name], name
         assert "'device'" in port_cut[name], name
         assert "'device'" not in orig_cut[name], name
+    text = (PORT / rel).read_text()
+    assert not any(HISTORY.search(line) for line in text.splitlines())
+
+
+def test_hbmplan_differs_from_original_only_in_the_capacity_seam():
+    """The port's ``core/hbmplan.py`` is the original (not listed in
+    ``COPIES``) but for ``plan_memory``, which takes the capacity, and the
+    original's per-chip constant, which the port drops: cut both, and the
+    two syntax trees are the same, statement for statement."""
+    rel = "core/hbmplan.py"
+    assert rel not in COPIES
+    port = _tree((PORT / rel).read_text().replace("repro_torch", "repro"))
+    orig = _tree((SRC / "repro" / rel).read_text())
+    port_cut = _cut_seam(port, HBM_SEAM + HBM_GONE)
+    orig_cut = _cut_seam(orig, HBM_SEAM + HBM_GONE)
+    assert sorted(orig_cut) == sorted(HBM_SEAM + HBM_GONE)
+    assert sorted(port_cut) == sorted(HBM_SEAM)
+    # where the original assigned the constant, the port has nothing: drop
+    # the module-level stand-ins of what was cut on both sides
+    for tree in (port, orig):
+        tree.body = [n for n in tree.body if not isinstance(n, ast.Pass)]
+    assert ast.dump(port) == ast.dump(orig)
+    assert "'capacity_bytes'" in port_cut["plan_memory"]
+    assert "'HBM_BYTES'" in orig_cut["plan_memory"]
+    assert "'HBM_BYTES'" not in port_cut["plan_memory"]
     text = (PORT / rel).read_text()
     assert not any(HISTORY.search(line) for line in text.splitlines())
