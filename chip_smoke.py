@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-eleven phases; any mismatch raises, so the script exits non-zero:
+twelve phases; any mismatch raises, so the script exits non-zero:
 
 (a) kernels: the GEMM, RMSNorm, flash-attention, WKV6, RG-LRU scan and
     grouped-matmul kernels against their plain torch versions on the
@@ -170,6 +170,21 @@ eleven phases; any mismatch raises, so the script exits non-zero:
     ``multi_tenant_torch.py`` and ``serve_lm_torch.py --execute --lm
     rwkv6``; every oracle assert must hold, and the GEMM must launch.  It
     prints each twin's wall time and its launches by kernel and route.
+(l) the pod tooling: on a 1 x 1 ("data", "model") mesh over a one-rank
+    NCCL process group (a ``HashStore``, no network), the training
+    launcher's mesh path (``launch/train.train``, internlm2-1.8b at full
+    width and depth, B4 S1024, 2 steps: params and batches DTensors laid
+    out by the mesh plan, the kernels entered through ``local_map``) must
+    give the losses and every param leaf of the same call without a mesh
+    bitwise, with K2's and K3's exact forward and backward launches on
+    both; then qwen3-8b at full width and depth decodes 8 tokens after a
+    77-token prefill under the plan's decode hints, its logits bitwise
+    those of the plain eager step, K2 launching 145 times a step on both.
+    Then the dry run (``launch/dryrun.py``) on the host: rwkv6-3b x
+    long_500k, qwen3-8b x decode_32k and olmoe-1b-7b x train_4k on the
+    16 x 16 mesh, each in a subprocess with a time limit, all at once;
+    each must be ``ok`` with ``plan_model``'s strategy, and its
+    per-device peak, FLOPs and collective bytes are printed.
 
 Every LM phase also runs its longest prompt's prefill twice and requires
 the same bits from both.
@@ -189,6 +204,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import random
 import subprocess
 import sys
@@ -299,6 +315,10 @@ def main() -> int:
     print(f"phase k entry points and tile tuner: "
           f"{time.perf_counter() - t0:.2f} s, the twins' launches "
           f"{by_path['k']}")
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh(torch, dev, smi[0], counted)
+    print(f"phase l pod tooling: {time.perf_counter() - t0:.2f} s, the "
+          f"1x1 mesh path's launches {mesh_launches}")
     # each kernel's launches come from the serving path it lies on: K1 and
     # K2 from phase c (the tiled runtime), K3 from phase d (qwen3-8b), K4
     # from phase e (rwkv6-3b), K5 from phase f (recurrentgemma-2b), K6
@@ -2753,6 +2773,247 @@ def phase_entry_points(torch, dev, card, counted):
                                                   "routes")}
                          for name, r in runs.items()}}}))
     return tiles, launches
+
+
+# ---------------------------------------------------------------- phase l
+
+# the dry run's cells: (arch, shape), each traced on the 16 x 16 mesh
+DRYRUN_CELLS = [("rwkv6-3b", "long_500k"), ("qwen3-8b", "decode_32k"),
+                ("olmoe-1b-7b", "train_4k")]
+DRYRUN_TIMEOUT = 300     # seconds a cell's subprocess may take
+MESH_TRAIN = {"arch": "internlm2-1.8b", "batch": 4, "seq": 1024, "steps": 2,
+              # a step's launches, remat on: K2 49 + 48 forward, 98
+              # backward; K3 24 + 24 forward, 72 backward (phase i's)
+              "rmsnorm": 97, "flash_attention": 48,
+              "rmsnorm_bwd": 98, "flash_attention_bwd": 72}
+MESH_DECODE = {"arch": "qwen3-8b", "prompt": (1, 77),
+               "norms_per_step": 36 * 4 + 1}
+
+
+class _Grid:
+    """What ``meshplan.plan_model`` reads of a mesh: its axes' names and
+    sizes (the dry run's 16 x 16 pod, without its 256 ranks)."""
+    mesh_dim_names = ("data", "model")
+    shape = (16, 16)
+
+
+def _mesh_train(torch, counted, name):
+    """(i) 1: the training launcher's step, on the mesh path where a
+    process group is set up (``name`` "mesh") or on plain tensors where
+    none is ("plain"): its seconds, losses, params and kernel launches."""
+    from repro_torch.launch.train import train
+    spec = MESH_TRAIN
+    reset_launches(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train(spec["arch"], steps=spec["steps"], batch=spec["batch"],
+                seq=spec["seq"], smoke=False, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    params = out["state"]["params"]
+    if name == "mesh":
+        params = {"leaves": [t.to_local() for t in _leaves(params)]}
+    return {"s": time.perf_counter() - t0,
+            "losses": out["losses"],
+            "params": list(_leaves(params)),
+            "launches": {
+                "rmsnorm": counted["rmsnorm"].launches,
+                "flash_attention": counted["flash_attention"].launches,
+                "rmsnorm_bwd": counted["rmsnorm"].bwd_launches,
+                "flash_attention_bwd":
+                    counted["flash_attention"].bwd_launches}}
+
+
+def _mesh_decode(torch, dev, counted):
+    """(i) 2: qwen3-8b decoding LM_DECODE tokens after one prefill, on
+    plain tensors and on the 1 x 1 mesh under the plan's decode hints:
+    the logits of each step, each path's seconds and K2's launches."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import registry
+    from repro_torch.core import hints, meshplan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+
+    spec = MESH_DECODE
+    cfg = registry.get_config(spec["arch"])
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    B, S = spec["prompt"]
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(cfg, params, x,
+                                      max_seq=S + LM_DECODE)
+    first = logits.argmax(-1)
+    del logits
+    mesh = make_host_mesh()
+    plan = meshplan.plan_model(cfg, mesh, "decode", B, S + LM_DECODE)
+    out = {"hints": sorted(plan.hints), "strategy": plan.strategy}
+    for name in ("plain", "mesh"):
+        c = {"slots": [{k: v.clone() for k, v in e.items()}
+                       for e in cache["slots"]],
+             "tail": [{k: v.clone() for k, v in e.items()}
+                      for e in cache["tail"]],
+             "pos": cache["pos"].clone()}
+        p = params
+        if name == "mesh":
+            p = meshplan.distribute(
+                params, meshplan.tree_shardings(plan, mesh, params))
+            c = meshplan.distribute(
+                c, meshplan.cache_shardings(plan, mesh, c, B))
+            hints.set_hints(plan.hints, mesh)
+        reset_launches(counted)
+        got = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad(), implicit_replication():
+                for n in range(LM_DECODE):
+                    tok = first if n == 0 else got[-1].argmax(-1)
+                    if name == "mesh":
+                        tok = meshplan.distribute(
+                            {"t": tok}, meshplan.batch_shardings(
+                                plan, mesh, {"t": tok}))["t"]
+                    lg, c = model.decode_step(cfg, p, c, tok)
+                    got.append(lg.full_tensor() if name == "mesh" else lg)
+            torch.cuda.synchronize()
+        finally:
+            hints.set_hints(None)
+        out[name] = {"s": time.perf_counter() - t0, "logits": got,
+                     "rmsnorm": counted["rmsnorm"].launches,
+                     "flash_attention": counted["flash_attention"].launches}
+        del p, c
+    return out
+
+
+def _dryrun_cells(card):
+    """(ii) the dry run's cells, each in a subprocess of its own with a
+    time limit, all at once: each cell's record and wall seconds."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for arch, shape in DRYRUN_CELLS:
+            out = Path(tmp, f"{arch}_{shape}")
+            procs[arch, shape] = (time.perf_counter(), out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", str(out)], env=env, cwd=str(ROOT),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        cells = {}
+        for key, (t0, out, proc) in procs.items():
+            try:
+                log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for _, _, q in procs.values():
+                    q.kill()
+                    q.wait()
+                raise AssertionError(f"dry run {key}: over "
+                                     f"{DRYRUN_TIMEOUT} s")
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {key} exited "
+                                     f"{proc.returncode}:\n{log[-3000:]}")
+            rec = json.loads(Path(out, "dryrun.json").read_text())[0]
+            cells[key] = (rec, wall)
+    return cells
+
+
+def phase_mesh(torch, dev, card, counted):
+    """(l) The pod tooling: the training launcher's mesh path and a
+    decode under the plan's hints on a 1 x 1 mesh over a one-rank NCCL
+    group, each bitwise against the plain path with its launches; then
+    the dry run's cells on the host.  Returns each kernel's launches on
+    the mesh path."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core import meshplan
+
+    t0 = time.perf_counter()
+    runs = {"plain": _mesh_train(torch, counted, "plain")}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        runs["mesh"] = _mesh_train(torch, counted, "mesh")
+        spec = MESH_TRAIN
+        plain, mesh = runs["plain"], runs["mesh"]
+        if mesh["losses"] != plain["losses"]:
+            raise AssertionError(f"mesh losses {mesh['losses']} != "
+                                 f"{plain['losses']}")
+        if len(mesh["params"]) != len(plain["params"]) or not all(
+                torch.equal(a, b)
+                for a, b in zip(mesh["params"], plain["params"])):
+            raise AssertionError("the mesh step's params differ from the "
+                                 "plain step's")
+        want = {k: spec[k] * spec["steps"] for k in plain["launches"]}
+        for name in ("plain", "mesh"):
+            if runs[name]["launches"] != want:
+                raise AssertionError(f"{name} training launches "
+                                     f"{runs[name]['launches']}, not {want}")
+        del runs
+        torch.cuda.empty_cache()
+        print(f"phase l train {spec['arch']} B{spec['batch']} "
+              f"S{spec['seq']}, {spec['steps']} steps: plain "
+              f"{plain['s']:.2f} s, 1x1 mesh {mesh['s']:.2f} s, losses "
+              f"{mesh['losses']} bitwise equal, {len(mesh['params'])} param "
+              f"leaves bitwise equal, launches {mesh['launches']} on both "
+              f"[{card}]")
+        train_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dec = _mesh_decode(torch, dev, counted)
+        for n, (a, b) in enumerate(zip(dec["mesh"]["logits"],
+                                       dec["plain"]["logits"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mesh decode step {n}: logits differ "
+                                     f"from the plain step's")
+        norms = MESH_DECODE["norms_per_step"] * LM_DECODE
+        for name in ("plain", "mesh"):
+            if (dec[name]["rmsnorm"], dec[name]["flash_attention"]) != (
+                    norms, 0):
+                raise AssertionError(
+                    f"{name} decode launches K2 {dec[name]['rmsnorm']}, K3 "
+                    f"{dec[name]['flash_attention']}, not {norms}, 0")
+        mesh_launches = {"rmsnorm": dec["mesh"]["rmsnorm"],
+                         "flash_attention": mesh["launches"][
+                             "flash_attention"]}
+        print(f"phase l decode {MESH_DECODE['arch']} {LM_DECODE} tokens "
+              f"after {MESH_DECODE['prompt']}: plain "
+              f"{dec['plain']['s']:.2f} s, 1x1 mesh {dec['mesh']['s']:.2f} "
+              f"s, logits bitwise equal, strategy {dec['strategy']}, hints "
+              f"{dec['hints']}, K2 {norms} launches on both [{card}]")
+        decode_s = time.perf_counter() - t0
+        del dec
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    cells = _dryrun_cells(card)
+    for (arch, shape), (rec, wall) in cells.items():
+        sh = SHAPES[shape]
+        want = meshplan.plan_model(registry.get_config(arch), _Grid(),
+                                   sh.kind, sh.global_batch,
+                                   sh.seq_len).strategy
+        if rec["status"] != "ok" or rec["strategy"] != want:
+            raise AssertionError(f"dry run {arch} x {shape}: "
+                                 f"{rec['status']}, strategy "
+                                 f"{rec.get('strategy')} (plan {want}): "
+                                 f"{rec.get('error')}")
+        mem = rec["memory"]
+        print(f"phase l dry run {arch} x {shape} [{rec['mesh']}]: ok, "
+              f"strategy {rec['strategy']}, per device peak "
+              f"{mem['peak_bytes'] / 2 ** 30:.2f} GiB (arguments "
+              f"{mem['argument_bytes'] / 2 ** 30:.2f}), flops "
+              f"{rec['flops']:.4e}, collectives "
+              f"{ {k: round(v / 2 ** 20, 1) for k, v in rec['collectives'].items()} }"
+              f" MiB, traced in {rec['lower_s']} s, subprocess "
+              f"{wall:.2f} s [host of {card}]")
+    print(f"phase l: train {train_s:.2f} s, decode {decode_s:.2f} s, dry "
+          f"run {time.perf_counter() - t0:.2f} s (cells at once)")
+    return mesh_launches
 
 
 def _leaves(tree):

@@ -13,7 +13,9 @@ tensors, with the same layout per step::
   finished checkpoints; an unfinished directory (no DONE) is ignored by
   ``latest_step``, so a crash mid-write leaves the last one standing.
 * ``restore`` rebuilds ``like``'s structure from the manifest, each leaf
-  in ``like``'s dtype and on its device.
+  in ``like``'s dtype and on its device.  A DTensor leaf (a state laid
+  out on a device mesh) is written whole and restored in its ``like``'s
+  layout.
 * bfloat16: numpy has no such type without ``ml_dtypes``, which the port
   does not need.  A bf16 leaf is written as its 16-bit patterns in a
   2-byte void array, the bytes and ``.npy`` header the JAX manager writes
@@ -33,6 +35,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.on_mesh import on_mesh
 from repro_torch.core.pytree import leaves_with_path, unflatten
 
 _BF16_BYTES = np.dtype("V2")
@@ -45,6 +48,8 @@ def _flatten(tree) -> List[Tuple[str, Any]]:
 def _to_host(x) -> Tuple[np.ndarray, str]:
     """A leaf as (numpy array to write, the dtype the manifest names)."""
     if isinstance(x, torch.Tensor):
+        if on_mesh(x):            # a DTensor: the whole tensor is written
+            x = x.full_tensor()
         # a copy even of a CPU tensor: the background write must not see
         # a training step that updates the tree in place
         t = x.detach().to("cpu", copy=True)
@@ -160,7 +165,12 @@ class CheckpointManager:
         for ref, entry in zip(flat, manifest["leaves"]):
             a = np.load(os.path.join(path, "data", entry["file"]))
             t = _from_host(a, entry["dtype"])
-            if isinstance(ref, torch.Tensor):
+            if on_mesh(ref):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(
+                    t.to(device=ref.device, dtype=ref.dtype),
+                    ref.device_mesh, ref.placements)
+            elif isinstance(ref, torch.Tensor):
                 t = t.to(device=ref.device, dtype=ref.dtype)
             else:
                 t = t.numpy()

@@ -11,8 +11,17 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, List, Tuple
 
 
+class LeafTuple(tuple):
+    """A tuple that the functions here take as one leaf, not as a
+    sequence (a sharding spec in a tree of specs)."""
+
+
 def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _is_seq(x: Any) -> bool:
+    return isinstance(x, (list, tuple)) and not isinstance(x, LeafTuple)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -23,9 +32,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
                 for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any,
+                       path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over ``tree``'s leaves, keeping the structure;
+    paths as :func:`leaves_with_path` spells them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (f".{n}",))
+                            for n, v in zip(tree._fields, tree)))
+    if _is_seq(tree):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def leaves_with_path(tree: Any, path: Tuple[str, ...] = ()
@@ -39,7 +64,7 @@ def leaves_with_path(tree: Any, path: Tuple[str, ...] = ()
     elif _is_namedtuple(tree):
         for name, v in zip(tree._fields, tree):
             yield from leaves_with_path(v, path + (f".{name}",))
-    elif isinstance(tree, (list, tuple)):
+    elif _is_seq(tree):
         for i, v in enumerate(tree):
             yield from leaves_with_path(v, path + (str(i),))
     else:
@@ -68,7 +93,7 @@ def unflatten(like: Any, flat: List[Any]) -> Any:
             return {k: got[k] for k in t}
         if _is_namedtuple(t):
             return type(t)(*(build(v) for v in t))
-        if isinstance(t, (list, tuple)):
+        if _is_seq(t):
             return type(t)(build(v) for v in t)
         return take()
 

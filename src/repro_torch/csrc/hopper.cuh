@@ -10,7 +10,8 @@
 //
 // The tensor maps come from libcuda's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPointByVersion (CUDA 12.5 and later; the
-// unversioned lookup is deprecated there), so the library needs no -lcuda.
+// unversioned lookup is deprecated there), so the library needs no -lcuda;
+// the encoders make a context current first where the thread has none.
 
 #pragma once
 
@@ -915,36 +916,96 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // -------------------------------------------------------- host: tensor maps
 
+// A driver error is returned as DRIVER_ERROR plus its CUresult, apart
+// from the runtime's cudaError_t codes (kernels/_build.py reads it so)
+constexpr int DRIVER_ERROR = 100000;
+
+// libcuda's entry point `name` as of driver API `version`, looked up
+// through cudaGetDriverEntryPointByVersion; null without it
+template <class Fn>
+inline Fn driver_fn(const char* name, unsigned int version) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found{};
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &p, version, cudaEnableDefault, &found);
+  return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+             ? reinterpret_cast<Fn>(p)
+             : nullptr;
+}
+
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
+using CtxGetCurrentFn = CUresult (*)(CUcontext*);
 
-// libcuda's cuTensorMapEncodeTiled with its CUDA 12.0 signature, looked
-// up once; null without it
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
+// Makes the primary context of the thread's device current where no
+// context is.  cuTensorMapEncodeTiled is a driver call and needs one; the
+// runtime makes one current only at a thread's first runtime call that
+// needs it.  PyTorch's autograd runs a backward on a device thread of its
+// own and, on device 0, sets no device there, so until something on that
+// thread calls the runtime (a cudaMalloc, which a warm caching allocator
+// never makes) no context is current and the encode fails.  cudaSetDevice
+// makes the device's primary context current.  Returns 0 or an error.
+inline int bind_context() {
+  static const CtxGetCurrentFn get =
+      driver_fn<CtxGetCurrentFn>("cuCtxGetCurrent", 4000);
+  if (get == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUcontext ctx = nullptr;
+  const CUresult r = get(&ctx);
+  if (r != CUDA_SUCCESS) return DRIVER_ERROR + static_cast<int>(r);
+  if (ctx != nullptr) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  return static_cast<int>(err);
+}
+
+// cuTensorMapEncodeTiled (its CUDA 12.0 signature) on the calling
+// thread's context, elements strided by 1, no interleave, zeros outside
+// the tensor.  Returns 0 or an error.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type,
+                  cuuint32_t rank, const void* base, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
+  static const EncodeTiledFn fn =
+      driver_fn<EncodeTiledFn>("cuTensorMapEncodeTiled", 12000);
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (const int rc = bind_context()) return rc;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : DRIVER_ERROR + static_cast<int>(r);
+}
+
+// The name and text of a code an entry point returned: a cudaError_t, or
+// DRIVER_ERROR plus a CUresult
+inline const char* error_string(int code) {
+  if (code < DRIVER_ERROR) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
+  using ErrorStringFn = CUresult (*)(CUresult, const char**);
+  static const ErrorStringFn text =
+      driver_fn<ErrorStringFn>("cuGetErrorString", 6000);
+  const char* s = nullptr;
+  if (text == nullptr ||
+      text(static_cast<CUresult>(code - DRIVER_ERROR), &s) != CUDA_SUCCESS ||
+      s == nullptr) {
+    return "unknown driver error";
+  }
+  return s;
 }
 
 // A 3-D bf16 tensor map over `base`: dimension 0 innermost and
 // contiguous, sizes d0..d2, strides s1 and s2 in elements, boxes of b0 x
 // b1 x 1 elements (b0 <= 64, one 128-byte row) loaded with the 128-byte
-// swizzle and zeros outside the tensor.  Returns 0 or a CUDA error code.
+// swizzle and zeros outside the tensor.  Returns 0 or an error.
 inline int encode_bf16_3d_sw128(CUtensorMap* map, const void* base,
                                 long long d0, long long d1, long long d2,
                                 long long s1, long long s2, int b0, int b1) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
                               static_cast<cuuint64_t>(d1),
                               static_cast<cuuint64_t>(d2)};
@@ -952,27 +1013,20 @@ inline int encode_bf16_3d_sw128(CUtensorMap* map, const void* base,
                                  static_cast<cuuint64_t>(s2 * 2)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
                              static_cast<cuuint32_t>(b1), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A 4-D bf16 tensor map over `base`: dimension 0 innermost and
 // contiguous, sizes d0..d3, strides s1..s3 in elements (any order: a
 // (B,S,H,Dh) tensor is mapped as (Dh, S, H, B), so a box never crosses a
 // head or batch edge), boxes of b0 x b1 x 1 x 1 elements (b0 <= 64) loaded
-// with the 128-byte swizzle and zeros outside the tensor.  Returns 0 or a
-// CUDA error code.
+// with the 128-byte swizzle and zeros outside the tensor.  Returns 0 or an
+// error.
 inline int encode_bf16_4d_sw128(CUtensorMap* map, const void* base,
                                 long long d0, long long d1, long long d2,
                                 long long d3, long long s1, long long s2,
                                 long long s3, int b0, int b1) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
       static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
@@ -981,26 +1035,19 @@ inline int encode_bf16_4d_sw128(CUtensorMap* map, const void* base,
                                  static_cast<cuuint64_t>(s3 * 2)};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0),
                              static_cast<cuuint32_t>(b1), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A 4-D tensor map over `base` of bf16 (elem_bytes 2) or fp32 (4):
 // dimension 0 innermost and contiguous, sizes d0..d3, strides s1..s3 in
 // elements (any order), boxes of b0 x b1 x b2 x b3 elements loaded as
-// they lie (no swizzle), zeros outside the tensor.  Returns 0 or a CUDA
-// error code.
+// they lie (no swizzle), zeros outside the tensor.  Returns 0 or an
+// error.
 inline int encode_4d(CUtensorMap* map, const void* base, int elem_bytes,
                      long long d0, long long d1, long long d2, long long d3,
                      long long s1, long long s2, long long s3, int b0,
                      int b1, int b2, int b3) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
       static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
@@ -1010,14 +1057,10 @@ inline int encode_4d(CUtensorMap* map, const void* base, int elem_bytes,
   const cuuint32_t box[4] = {
       static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1),
       static_cast<cuuint32_t>(b2), static_cast<cuuint32_t>(b3)};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      4, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode(map,
+                elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

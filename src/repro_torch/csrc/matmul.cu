@@ -618,5 +618,5 @@ extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c,
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

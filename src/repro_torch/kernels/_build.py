@@ -271,8 +271,29 @@ def refuse_grad(what: str, *tensors) -> None:
                            f"tensors (the plain version differentiates)")
 
 
+def refuse_dtensor(what: str, t) -> None:
+    """Raise for a DTensor (a tensor laid out on a device mesh): its
+    ``data_ptr()`` is its local shard's, which a kernel would read with
+    the global shape.  DTensors reach a kernel as local shards, through
+    ``core/on_mesh.py``."""
+    import torch
+    if type(t) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what} got a DTensor: call it through "
+                            f"repro_torch.core.on_mesh, which hands the "
+                            f"kernel each rank's local shards")
+
+
+# a C entry point returns a driver error as this plus its CUresult, a
+# runtime error as its cudaError_t (csrc/hopper.cuh)
+DRIVER_ERROR = 100000
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if rc != 0:
         msg = library().repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+        kind, code = (("CUDA driver error", rc - DRIVER_ERROR)
+                      if rc >= DRIVER_ERROR else ("CUDA error", rc))
+        raise RuntimeError(f"{what} launch failed: {kind} {code} ({msg})")

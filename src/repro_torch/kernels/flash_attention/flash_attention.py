@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_chunked,
                                                      attention_ref)
@@ -132,12 +132,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_block_k(q, block_k)
     if window is not None and window < 0:
         raise ValueError(f"window {window} is negative")
+    if dry.storageless(q):
+        B, S, H, Dh = q.shape
+        pairs = dry.attention_pairs(S, causal, window)
+        es = q.element_size()
+        qkv = 2 * q.numel() + k.numel() + v.numel()
+        return dry.call("flash_attention", (q, k, v), [(q.shape, q.dtype)],
+                        (4.0 * B * H * Dh * pairs, qkv * es),
+                        # q, out, dO read and dq written; k, v read,
+                        # dk, dv written
+                        (10.0 * B * H * Dh * pairs,
+                         (4 * q.numel() + 2 * (k.numel() + v.numel()))
+                         * es))[0]
     if q.device.type == "cpu":
         if q.shape[1] > CHUNKED_THRESHOLD:
             return attention_chunked(q, k, v, causal=causal, window=window)
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
+    _build.refuse_dtensor("flash_attention", q)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, block_k)

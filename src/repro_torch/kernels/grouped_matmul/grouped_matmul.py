@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.grouped_matmul.ref import (grouped_matmul_bwd_ref,
                                                     grouped_matmul_ref)
 
@@ -187,10 +187,20 @@ def plan_bwd(which: int, E: int, C: int, D: int, F: int, sms: int):
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
+    if dry.storageless(x):
+        E, C, D = x.shape
+        Fw, es = w.shape[-1], x.element_size()
+        io = E * C * D + E * D * Fw
+        return dry.call("grouped_matmul", (x, w),
+                        [((E, C, Fw), x.dtype)],
+                        (2.0 * E * C * D * Fw, (io + E * C * Fw) * es),
+                        (4.0 * E * C * D * Fw,
+                         (2 * io + E * C * Fw) * es))[0]
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped_matmul kernel for device {x.device}")
+    _build.refuse_dtensor("grouped_matmul", x)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _GroupedMatmul.apply(x, w)
     return _product(x, w, backward=False)

@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 _ENTRY = {torch.float32: "repro_matmul_f32",
@@ -219,10 +219,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     if split is not None:
         _check_split(a, b, split)
     dev = a.device
+    if dry.storageless(a):
+        a3, b3, lead = _operands(a, b)
+        (M, K), N = a3.shape[1:], b3.shape[-1]
+        return dry.call("matmul", (a, b), [((*lead, N), a.dtype)],
+                        (2.0 * a3.shape[0] * M * N * K,
+                         (a3.numel() + b3.numel() + a3.shape[0] * M * N)
+                         * a.element_size()))[0]
     if dev.type == "cpu":
         return matmul_ref(a, b)
     if dev.type != "cuda":
         raise ValueError(f"no matmul kernel for device {dev}")
+    _build.refuse_dtensor("matmul", a)
     _build.refuse_grad("matmul", a, b)
     a3, b3, lead = _operands(a, b)
     M, K = a3.shape[1:]

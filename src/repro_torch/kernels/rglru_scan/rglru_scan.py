@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 
 _ENTRY = {torch.float32: "repro_rglru_f32",
@@ -134,10 +134,18 @@ def _launch(a: torch.Tensor, b: torch.Tensor):
 def rglru(a: torch.Tensor, b: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(a, b)
+    if dry.storageless(a):
+        B, D = a.shape[0], a.shape[2]
+        n, es = a.numel(), a.element_size()
+        return dry.call("rglru", (a, b),
+                        [(a.shape, a.dtype), ((B, D), torch.float32)],
+                        (2.0 * n, 3 * n * es + 4 * B * D),
+                        (5.0 * n, 5 * n * es + 4 * B * D))
     if a.device.type == "cpu":
         return rglru_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no rglru kernel for device {a.device}")
+    _build.refuse_dtensor("rglru", a)
     B = a.shape[0]
     if B > _MAX_GRID:
         raise ValueError(f"B={B} exceeds the grid limit {_MAX_GRID}")

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _ENTRY = {torch.float32: "repro_rmsnorm_f32",
@@ -182,10 +182,18 @@ def rmsnorm(x: torch.Tensor, g: Optional[torch.Tensor] = None,
             eps: float = 1e-6) -> torch.Tensor:
     _check(x, g)
     dev = x.device
+    if dry.storageless(x):
+        d, es = x.shape[-1], x.element_size()
+        rows = x.numel() // max(d, 1)
+        return dry.call("rmsnorm", (x, g), [(x.shape, x.dtype)],
+                        ((3.0 if g is None else 4.0) * rows * d,
+                         (2 * rows * d + (0 if g is None else d)) * es),
+                        (10.0 * rows * d, (3 * rows * d + 2 * d) * es))[0]
     if dev.type == "cpu":
         return rmsnorm_ref(x, g, eps)
     if dev.type != "cuda":
         raise ValueError(f"no rmsnorm kernel for device {dev}")
+    _build.refuse_dtensor("rmsnorm", x)
     if torch.is_grad_enabled() and (
             x.requires_grad or (g is not None and g.requires_grad)):
         return _RMSNorm.apply(x, g, eps)

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
 
 _ENTRY = {torch.float32: "repro_wkv6_f32",
@@ -146,10 +146,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(r, k, v, w, u)
+    if dry.storageless(r):
+        B, T, H, D = r.shape
+        n, es = r.numel(), r.element_size()
+        state = 4 * (B * H * D * D + H * D)
+        return dry.call("wkv6", (r, k, v, w, u),
+                        [(r.shape, r.dtype), ((B, H, D, D), torch.float32)],
+                        (5.0 * n * D, 5 * n * es + state),
+                        (12.0 * n * D, 9 * n * es + state + 4 * H * D))
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 kernel for device {r.device}")
+    _build.refuse_dtensor("wkv6", r)
     B, T, H, D = r.shape
     if H > _MAX_GRID or B > _MAX_GRID:
         raise ValueError(f"B={B}, H={H}: a grid axis exceeds {_MAX_GRID}")

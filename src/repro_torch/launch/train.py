@@ -1,17 +1,22 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-End-to-end driver, the JAX package's ``repro/launch/train.py`` on one
-card: config -> params (``model.init`` from an explicitly seeded
-``torch.Generator``) -> data pipeline -> train step (remat, AdamW, the
-state donated to the step as the JAX launcher's jit donates it) under
-the fault supervisor (checkpoint/restart + straggler watch).  One device
-and no mesh: the JAX launcher's ``meshplan.plan_model`` and
-``tree_shardings`` wait for the mesh planner's port (the pod-tooling item
-of the roadmap).  Runs on ``cuda`` unless the caller passes
+End-to-end driver, the JAX package's ``repro/launch/train.py``: config ->
+mesh -> mesh-plan layouts -> params (``model.init`` from an explicitly
+seeded ``torch.Generator``) -> data pipeline -> train step (remat, AdamW,
+the state donated to the step as the JAX launcher's jit donates it)
+under the fault supervisor (checkpoint/restart + straggler watch).
+
+The mesh: when a process group is set up (``torch.distributed``), the
+launcher builds ``launch/mesh.make_host_mesh()`` over it (1 x 1 over a
+one-rank group on one card), plans it with ``meshplan.plan_model(cfg,
+mesh, "train", batch, seq)``, lays params out by ``tree_shardings`` and
+each batch by ``batch_shardings``, and the step runs on DTensors; with
+no process group it runs on plain tensors on one device.  Runs on
+``cuda`` unless the caller passes
 ``device="cpu"``; ``--full`` takes the config's published widths and
 depth (internlm2-1.8b, rwkv6-3b, recurrentgemma-2b and
 granite-moe-3b-a800m at full size fit one H100 with their AdamW state;
-olmoe-1b-7b and the larger dense configs need the mesh),
+olmoe-1b-7b and the larger dense configs need a mesh of several cards),
 the default its smoke size.  Weights can also come from the JAX package
 (``core/weights.py:tree_from_jax``), which the tests do.
 
@@ -29,11 +34,14 @@ import argparse
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
+from repro_torch.core import meshplan
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.fault.supervisor import Supervisor, SupervisorConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
 from repro_torch.train.step import make_train_step
@@ -51,9 +59,18 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to train on "
                            "the CPU")
-
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen, cfg, dev)
+    place = None
+    if dist.is_available() and dist.is_initialized():
+        dmesh = make_host_mesh(device=dev.type)
+        plan = meshplan.plan_model(cfg, dmesh, "train", batch, seq)
+        params = meshplan.distribute(
+            params, meshplan.tree_shardings(plan, dmesh, params))
+
+        def place(b):
+            return meshplan.distribute(
+                b, meshplan.batch_shardings(plan, dmesh, b))
     opt_cfg = adamw.AdamWConfig(total_steps=steps, warmup_steps=steps // 10)
     opt_state = adamw.init(params)
     # the JAX launcher jits the step with donate_argnums=(0, 1); here the
@@ -80,6 +97,8 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 128,
                                "restart from")
         # the pipeline's numpy arrays, in their dtypes, on the device
         b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        if place is not None:
+            b = place(b)
         params, opt, metrics = step_fn(state["params"], state["opt"], b)
         donated.append(step_idx)
         losses.append(float(metrics["loss"]))

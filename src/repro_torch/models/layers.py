@@ -23,9 +23,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm as rms
+from repro_torch.core import hints, on_mesh
+from repro_torch.core.on_mesh import flash_attention
 
 Params = Dict[str, Any]
 
@@ -63,11 +62,16 @@ def init_embedding(gen, vocab: int, d: int, dtype=torch.bfloat16,
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    return rms.rmsnorm(x, p["g"], eps)
+    return on_mesh.rmsnorm(x, p["g"], eps)
+
+
+def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding table's rows at integer ``ids``."""
+    return on_mesh.embed(p["table"], ids)
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, p["w"])
+    return on_mesh.grad_as_forward(torch.matmul(x, p["w"]))
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
@@ -125,10 +129,12 @@ def attention_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), rope + qk-norm applied."""
-    B, S, _ = x.shape
-    q = linear(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = linear(p["wk"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
-    v = linear(p["wv"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    q = on_mesh.split_dim(linear(p["wq"], x), -1,
+                          (cfg.n_heads, cfg.head_dim))
+    k = on_mesh.split_dim(linear(p["wk"], x), -1,
+                          (cfg.n_kv, cfg.head_dim))
+    v = on_mesh.split_dim(linear(p["wv"], x), -1,
+                          (cfg.n_kv, cfg.head_dim))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -165,9 +171,16 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     caches are returned."""
     B, one, _ = x.shape
     assert one == 1
-    q = linear(p["wq"], x).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    k = linear(p["wk"], x).reshape(B, 1, cfg.n_kv, cfg.head_dim)
-    v = linear(p["wv"], x).reshape(B, 1, cfg.n_kv, cfg.head_dim)
+    q = on_mesh.split_dim(linear(p["wq"], x), -1,
+                          (cfg.n_heads, cfg.head_dim))
+    # keep the q projection head-sharded: with a 1-token batch a mesh
+    # otherwise gathers the TP weight shards instead of running the
+    # projection tensor-parallel
+    q = hints.constraint(q, "decode_heads")
+    k = on_mesh.split_dim(linear(p["wk"], x), -1,
+                          (cfg.n_kv, cfg.head_dim))
+    v = on_mesh.split_dim(linear(p["wv"], x), -1,
+                          (cfg.n_kv, cfg.head_dim))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -182,15 +195,25 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor,
     if valid is None:
         valid = slots[None, :] <= position[:, None]
 
-    b_idx = torch.arange(B, device=x.device)
-    cache_k[b_idx, write_idx.long()] = k[:, 0]
-    cache_v[b_idx, write_idx.long()] = v[:, 0]
+    # the new k/v into their slots, in place; on a mesh by a scatter of
+    # the written slot where the "decode_scatter_update" hint says so,
+    # else by a select over each rank's shard of the cache
+    on_mesh.cache_write((cache_k, cache_v), write_idx, (k[:, 0], v[:, 0]),
+                        hints.get("decode_scatter_update") is not None)
+    cache_k = hints.constraint(cache_k, "decode_cache")
+    cache_v = hints.constraint(cache_v, "decode_cache")
 
     groups = cfg.n_heads // cfg.n_kv
-    qh = q.reshape(B, cfg.n_kv, groups, cfg.head_dim)
+    # the einsums flatten (b, k): keep k whole
+    qh = on_mesh.replicate_dims(
+        on_mesh.split_dim(q[:, 0], 1, (cfg.n_kv, groups)), (1, 2))
     scale = 1.0 / math.sqrt(cfg.head_dim)
     logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
                           cache_k.float()) * scale
+    # sequence-sharded ring-decode: keep the (B,KV,G,S) logits sharded on
+    # S, so the softmax and the value contraction run as partial
+    # statistics and a reduce instead of gathering the cache
+    logits = hints.constraint(logits, "decode_logits")
     logits = torch.where(valid[:, None, None, :], logits,
                          torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
@@ -214,7 +237,8 @@ def init_swiglu(gen, d: int, d_ff: int, dtype=torch.bfloat16,
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(linear(p["w_gate"], x).float())
     u = linear(p["w_up"], x).float()
-    return linear(p["w_down"], (g * u).to(x.dtype))
+    h = hints.constraint((g * u).to(x.dtype), "ffn_hidden")
+    return linear(p["w_down"], h)
 
 
 def init_gelu_mlp(gen, d: int, d_ff: int, dtype=torch.bfloat16,
@@ -225,4 +249,5 @@ def init_gelu_mlp(gen, d: int, d_ff: int, dtype=torch.bfloat16,
 
 def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu(linear(p["w_up"], x).float(), approximate="tanh")
-    return linear(p["w_down"], h.to(x.dtype))
+    h = hints.constraint(h.to(x.dtype), "ffn_hidden")
+    return linear(p["w_down"], h)

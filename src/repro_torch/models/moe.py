@@ -23,10 +23,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import hints
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention
-from repro_torch.kernels.grouped_matmul import grouped_matmul as gmm
+from repro_torch.core import hints, on_mesh
+from repro_torch.core.on_mesh import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import stacking as ST
 from repro_torch.models import transformer as T
@@ -90,9 +88,48 @@ def _top_k(probs: torch.Tensor, K: int
     return vals[..., :K], idx[..., :K]
 
 
+def _dispatch(top_e: torch.Tensor, x: torch.Tensor, E: int, C: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gather (B,E*C), x's rows in expert-capacity slots (B,E*C,D)): each
+    batch row's own bookkeeping, padding slots reading a zero row."""
+    B, S, D = x.shape
+    K = top_e.shape[-1]
+    gather = _route_group(top_e, E, C)                       # (B,E*C)
+    token_idx = torch.clamp(gather // K, max=S)              # pad -> row S
+    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    return gather, xpad[b_idx, token_idx]                    # (B,E*C,D)
+
+
+def _combine(y: torch.Tensor, top_p: torch.Tensor, gather: torch.Tensor
+             ) -> torch.Tensor:
+    """Each token's output (B,S,D) from the experts' slots y (B,E*C,D):
+    each slot weighted by its router prob, then each token's slots added
+    in ascending slot order (the JAX package's scatter-add order)."""
+    B, EC, D = y.shape
+    S, K = top_p.shape[1:]
+    ppad = torch.cat([top_p.reshape(B, S * K), top_p.new_zeros((B, 1))], 1)
+    w_slot = torch.gather(ppad, 1, torch.clamp(gather, max=S * K))
+    contrib = y * w_slot[..., None].to(y.dtype)              # (B,E*C,D)
+    contrib = torch.cat([contrib, contrib.new_zeros((B, 1, D))], dim=1)
+    # each assignment's slot (E*C when it was dropped: the zero row)
+    assign_slot = torch.full((B, S * K + 1), EC, dtype=torch.long,
+                             device=y.device)
+    assign_slot.scatter_(1, gather, torch.arange(EC, device=y.device)
+                         .expand(B, EC))
+    slots = torch.sort(assign_slot[:, :S * K].reshape(B, S, K), -1).values
+    b_idx = torch.arange(B, device=y.device)[:, None]
+    out = torch.zeros((B, S, D), dtype=y.dtype, device=y.device)
+    for k in range(K):
+        out = out + contrib[b_idx, slots[..., k]]
+    return out
+
+
 def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B,S,D) -> (B,S,D).  Top-k routing; capacity C per (batch-row)
-    group; assignments past capacity fall back to the residual path."""
+    group; assignments past capacity fall back to the residual path.  The
+    routing, dispatch and combine are each batch row's own, and on a mesh
+    run on each rank's rows (``on_mesh.rowwise``)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
@@ -102,38 +139,19 @@ def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     top_p, top_e = _top_k(probs, K)                          # (B,S,K)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    gather = _route_group(top_e, E, C)                       # (B,E*C)
-    token_idx = torch.clamp(gather // K, max=S)              # pad -> row S
-    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    b_idx = torch.arange(B, device=x.device)[:, None]
-    xdisp = xpad[b_idx, token_idx]                           # (B,E*C,D)
+    gather, xdisp = on_mesh.rowwise(
+        lambda te, xl: _dispatch(te, xl, E, C), top_e, x, outputs=2)
     xdisp = xdisp.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
     xdisp = hints.constraint(xdisp, "moe_dispatch")
 
-    g = gmm.grouped_matmul(xdisp, p["w_gate"])               # (E,BC,F)
-    u = gmm.grouped_matmul(xdisp, p["w_up"])
+    g = on_mesh.grouped_matmul(xdisp, p["w_gate"])           # (E,BC,F)
+    u = on_mesh.grouped_matmul(xdisp, p["w_up"])
     h = (F.silu(g.float()) * u.float()).to(x.dtype)
     h = hints.constraint(h, "moe_hidden")
-    y = gmm.grouped_matmul(h, p["w_down"])                   # (E,BC,D)
+    y = on_mesh.grouped_matmul(h, p["w_down"])               # (E,BC,D)
     y = hints.constraint(y, "moe_out")
     y = y.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
-
-    # combine: weight each slot by its router prob, then add each token's
-    # slots in ascending slot order (the JAX package's scatter-add order)
-    ppad = torch.cat([top_p.reshape(B, S * K), top_p.new_zeros((B, 1))], 1)
-    w_slot = torch.gather(ppad, 1, torch.clamp(gather, max=S * K))
-    contrib = y * w_slot[..., None].to(y.dtype)              # (B,E*C,D)
-    contrib = torch.cat([contrib, contrib.new_zeros((B, 1, D))], dim=1)
-    # each assignment's slot (E*C when it was dropped: the zero row)
-    assign_slot = torch.full((B, S * K + 1), E * C, dtype=torch.long,
-                             device=x.device)
-    assign_slot.scatter_(1, gather, torch.arange(E * C, device=x.device)
-                         .expand(B, E * C))
-    slots = torch.sort(assign_slot[:, :S * K].reshape(B, S, K), -1).values
-    out = torch.zeros((B, S, D), dtype=x.dtype, device=x.device)
-    for k in range(K):
-        out = out + contrib[b_idx, slots[..., k]]
-    return out
+    return on_mesh.rowwise(_combine, y, top_p, gather)
 
 
 def _init_block(gen, cfg: ModelConfig, i: int, device) -> Params:
@@ -165,7 +183,7 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x: (B,S) int tokens -> logits (B,S,V); ``remat``
     recomputes each repeating unit in backward
     (:func:`~repro_torch.models.stacking.scan_blocks`)."""
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     B, S = h.shape[:2]
     positions = T._positions(B, S, h.device)
 
@@ -190,7 +208,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Params,
     are updated in place; the returned cache holds them and the advanced
     ``pos``."""
     pos = cache["pos"]
-    h = p["embed"]["table"][token[:, None].long()]
+    h = L.embed(p["embed"], token[:, None])
 
     def body(h, blk, lc, u):
         acfg = T._attn_cfg(cfg, u)
@@ -213,7 +231,7 @@ def prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, max_seq: int
     """Run the full prompt, materializing the KV cache: returns (logits of
     the last position (B,V), cache ready for decode)."""
     B, S = x.shape[:2]
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     positions = T._positions(B, S, h.device)
 
     def body(h, blk, u):

@@ -28,9 +28,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention
-from repro_torch.kernels.rglru_scan.rglru_scan import rglru
+from repro_torch.core.on_mesh import flash_attention, rglru
 from repro_torch.models import layers as L
 from repro_torch.models import stacking as ST
 from repro_torch.models.config import ModelConfig
@@ -149,7 +147,7 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x: (B,S) int tokens -> logits (B,S,V); ``remat``
     recomputes each repeating unit in backward
     (:func:`~repro_torch.models.stacking.scan_blocks`)."""
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     B, S = h.shape[:2]
     positions = _positions(B, S, h.device)
     zero_hist = _zero_hist(cfg, h)
@@ -207,7 +205,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Params,
     updated in place; the returned cache holds them and the advanced
     ``pos``."""
     pos = cache["pos"]
-    h = p["embed"]["table"][token[:, None].long()]
+    h = L.embed(p["embed"], token[:, None])
 
     def body(h, blk, lc, u):
         if cfg.layer_kind(u) == "rec":
@@ -250,7 +248,7 @@ def prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, max_seq: int
     ring KV caches: returns (logits of the last position (B,V), cache
     ready for decode)."""
     B, S = x.shape[:2]
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     positions = _positions(B, S, h.device)
     zero_hist = _zero_hist(cfg, h)
 

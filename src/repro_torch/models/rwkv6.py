@@ -23,7 +23,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv_scan.rwkv_scan import wkv6
+from repro_torch.core import on_mesh
+from repro_torch.core.on_mesh import wkv6
 from repro_torch.models import layers as L
 from repro_torch.models import stacking as ST
 from repro_torch.models.config import ModelConfig
@@ -112,7 +113,10 @@ def _gate_out(tm: Params, y: torch.Tensor, g: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
     """Per-head ``ln_x`` over (..., H, hd), the silu gate, ``wo``."""
     y = L.rmsnorm(tm["ln_x"], y)
-    y = y.reshape(g.shape) * F.silu(g.float()).to(dtype)
+    # the heads merged back: on a mesh their gradient keeps the merged
+    # layout, which splits back into heads however the width is sharded
+    y = on_mesh.grad_as_forward(y.reshape(g.shape)) \
+        * F.silu(g.float()).to(dtype)
     return L.linear(tm["wo"], y)
 
 
@@ -120,12 +124,11 @@ def time_mix(tm: Params, cfg: ModelConfig, x: torch.Tensor,
              x_prev_last: torch.Tensor):
     """x: (B,T,D); x_prev_last: (B,D) last token of the previous segment.
     Returns (out (B,T,D), new shift (B,D), new WKV state)."""
-    B, T, D = x.shape
     H, hd = _heads(cfg), cfg.rwkv_head_dim
     r, k, v, g, w = _mix_projections(tm, x, _shifted(x, x_prev_last))
 
     def hsplit(t):
-        return t.reshape(B, T, H, hd)
+        return on_mesh.split_dim(t, -1, (H, hd))
 
     y, s_new = wkv6(hsplit(r), hsplit(k), hsplit(v), hsplit(w.to(x.dtype)),
                     tm["u"])
@@ -155,7 +158,7 @@ def forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x: (B,S) int tokens -> logits (B,S,V); ``remat``
     recomputes each repeating unit in backward
     (:func:`~repro_torch.models.stacking.scan_blocks`)."""
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     zero = torch.zeros((h.shape[0], cfg.d_model), dtype=h.dtype,
                        device=h.device)
     h = ST.scan_blocks(h, p["blocks"], p["tail"],
@@ -189,15 +192,16 @@ def _step_block(blk: Params, cfg: ModelConfig, h: torch.Tensor,
                 lc: Params) -> torch.Tensor:
     """Single-token block step, h: (B,1,D); the layer's state entry ``lc``
     (views into the stacked cache) is updated in place."""
-    B = h.shape[0]
     H, hd = _heads(cfg), cfg.rwkv_head_dim
     xn = L.rmsnorm(blk["ln1"], h)
     tm = blk["tm"]
     r, k, v, g, w = _mix_projections(tm, xn, lc["tm_x"][:, None])
-    rt = r.reshape(B, H, hd).float()
-    kt = k.reshape(B, H, hd).float()
-    vt = v.reshape(B, H, hd).float()
-    wt = w.reshape(B, H, hd)
+    # the einsums flatten (b, h): keep h whole
+    rt, kt, vt = (on_mesh.replicate_dims(
+        on_mesh.split_dim(t, -1, (H, hd))[:, 0], (1,)).float()
+        for t in (r, k, v))
+    wt = on_mesh.replicate_dims(on_mesh.split_dim(w, -1, (H, hd))[:, 0],
+                                (1,))
     u = tm["u"].float()
     S = lc["wkv"]
     y = torch.einsum("bhi,bhij->bhj", rt, S) \
@@ -216,7 +220,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Params,
     """token: (B,) int -> (logits (B,V), cache).  The cache's state
     tensors are updated in place; the returned cache holds them and the
     advanced ``pos``."""
-    h = p["embed"]["table"][token[:, None].long()]
+    h = L.embed(p["embed"], token[:, None])
     h, slots, tail = ST.scan_blocks_cached(
         h, p["blocks"], p["tail"], cache["slots"], cache["tail"],
         lambda h, blk, lc, u: _step_block(blk, cfg, h, lc), 1, cfg.n_layers)
@@ -229,7 +233,7 @@ def prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, max_seq: int
             ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt, building the recurrent state: returns (logits of
     the last position (B,V), state ready for decode)."""
-    h = p["embed"]["table"][x.long()]
+    h = L.embed(p["embed"], x)
     B = h.shape[0]
     zero = torch.zeros((B, cfg.d_model), dtype=h.dtype, device=h.device)
     h, slots, tail = ST.scan_blocks_collect(

@@ -21,8 +21,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention
+from repro_torch.core.on_mesh import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import stacking as ST
 from repro_torch.models.config import ModelConfig
@@ -66,7 +65,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
 
 def _embed_in(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.input_kind == "tokens":
-        return p["embed"]["table"][x.long()]
+        return L.embed(p["embed"], x)
     return x.to(cfg.param_dtype)          # precomputed frame/patch embeds
 
 
@@ -134,8 +133,7 @@ def ring_cache(k: torch.Tensor, v: torch.Tensor, Sl: int) -> Params:
     B, S = k.shape[:2]
     take = min(S, Sl)
     shift = (S - take) % Sl
-    ck = torch.zeros((B, Sl) + tuple(k.shape[2:]), dtype=k.dtype,
-                     device=k.device)
+    ck = k.new_zeros((B, Sl) + tuple(k.shape[2:]))
     cv = torch.zeros_like(ck)
     ck[:, :take] = k[:, S - take:]
     cv[:, :take] = v[:, S - take:]

@@ -1664,3 +1664,129 @@ def test_family_train_step_on_card_matches_cpu(cuda, arch):
     for n, (a, b) in enumerate(zip(leaves(g_d), leaves(g_c))):
         rel = ((a.cpu() - b).norm() / b.norm().clamp(min=1e-30)).item()
         assert rel <= 1e-3, f"leaf {n}: relative L2 {rel}"
+
+
+# A backward on a thread where no CUDA context is current yet: PyTorch's
+# autograd device thread for device 0, or any fresh thread, whose tensors
+# the caching allocator serves from its cache (so no cudaMalloc has made
+# the context current there).  Before the tensor-map encoders of
+# csrc/hopper.cuh made the device's context current where none was, the
+# flash-attention backward's maps failed to encode on such a thread
+# (reported as CUDA error 1, invalid argument).
+FRESH_THREAD_SCRIPT = r"""
+import threading
+import torch
+from repro_torch.kernels.flash_attention import flash_attention as fa
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(0)
+q0, k0, v0, do = (torch.randn(s, generator=g).to(dev, torch.bfloat16)
+                  for s in [(2, 256, 8, 128), (2, 256, 2, 128),
+                            (2, 256, 2, 128), (2, 256, 8, 128)])
+out = fa.flash_attention(q0, k0, v0)
+for _ in range(2):    # the backward's tensors, freed into the cache
+    want = fa.flash_attention_bwd(q0, k0, v0, out, do)
+torch.cuda.synchronize()
+got = {}
+thread = threading.Thread(target=lambda: got.update(
+    thread=fa.flash_attention_bwd(q0, k0, v0, out, do)))
+thread.start()
+thread.join()
+q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+got["autograd"] = torch.autograd.grad(fa.flash_attention(q, k, v),
+                                      (q, k, v), do)
+for name in ("thread", "autograd"):
+    assert all(torch.equal(a, b) for a, b in zip(got[name], want)), name
+print("ok")
+"""
+
+
+def test_flash_attention_backward_on_a_fresh_thread(cuda):
+    """Step by step in a fresh process: the backward's tensors come from
+    the allocator's cache, then the backward runs on a new Python thread
+    and on autograd's device thread; both give the main thread's bits."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    run = subprocess.run([sys.executable, "-c", FRESH_THREAD_SCRIPT],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(src)))
+    assert run.returncode == 0 and run.stdout.strip() == "ok", (
+        run.stdout[-2000:] + run.stderr[-4000:])
+
+
+def test_driver_errors_keep_their_own_code(cuda):
+    """A C entry point returns a driver error (a tensor map that failed
+    to encode) as ``DRIVER_ERROR`` plus its CUresult, apart from the
+    runtime's codes, and the launch check names it as the driver's."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    assert lib.repro_cuda_error_string(1).decode() == "invalid argument"
+    assert lib.repro_cuda_error_string(
+        _build.DRIVER_ERROR + 201).decode() == "invalid device context"
+    with pytest.raises(RuntimeError,
+                       match=r"K launch failed: CUDA driver error 201 "
+                             r"\(invalid device context\)"):
+        _build.check(_build.DRIVER_ERROR + 201, "K")
+
+
+@pytest.fixture
+def one_rank_group(cuda):
+    """A one-rank NCCL process group (a HashStore, no network)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=cuda)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_mesh_train_step_is_the_plain_step_on_one_card(cuda):
+    """``launch/train.train`` on the 1 x 1 mesh (DTensor params and
+    batches, the kernels through ``local_map``), which it takes once a
+    process group is set up, gives the plain path's losses and params
+    bitwise, with the same K2 and K3 launches."""
+    import torch.distributed as dist
+    from repro_torch.core.pytree import leaves
+    from repro_torch.launch.train import train
+
+    def run():
+        r0 = (rms.launches, rms.bwd_launches, fa.launches, fa.bwd_launches)
+        out = train("internlm2-1.8b", steps=2, batch=4, seq=64,
+                    log_every=10 ** 9)
+        r1 = (rms.launches, rms.bwd_launches, fa.launches, fa.bwd_launches)
+        params = out["state"]["params"]
+        flat = [t.to_local() if dist.is_initialized() else t
+                for t in leaves(params)]
+        return out["losses"], flat, tuple(b - a for a, b in zip(r0, r1))
+
+    plain = run()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=cuda)
+    try:
+        mesh = run()
+    finally:
+        dist.destroy_process_group()
+    assert mesh[0] == plain[0]
+    assert all(torch.equal(a, b) for a, b in zip(mesh[1], plain[1]))
+    assert mesh[2] == plain[2] and min(plain[2]) > 0
+
+
+def test_a_wrapper_given_a_dtensor_raises(one_rank_group):
+    """A DTensor reaches a kernel only through ``core/on_mesh.py``'s
+    ``local_map``: handed one directly, the CUDA wrapper refuses it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    x = _randn((8, 256), "bfloat16", one_rank_group, 60)
+    g = _randn((256,), "bfloat16", one_rank_group, 61)
+    dx, dg = (distribute_tensor(t, mesh, [Replicate(), Replicate()])
+              for t in (x, g))
+    with pytest.raises(TypeError, match="DTensor"):
+        rms.rmsnorm(dx, dg)
+    with pytest.raises(TypeError, match="DTensor"):
+        fa.flash_attention(*(distribute_tensor(
+            _randn((1, 64, 2, 64), "bfloat16", one_rank_group, 62 + i),
+            mesh, [Replicate(), Replicate()]) for i in range(3)))
+    from repro_torch.core import on_mesh
+    assert torch.equal(on_mesh.rmsnorm(dx, dg).to_local(), rms.rmsnorm(x, g))

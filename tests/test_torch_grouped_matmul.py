@@ -89,13 +89,38 @@ def test_strided_x_on_cpu(view):
      TypeError),
     (torch.zeros(2, 8, 16, dtype=torch.float16),
      torch.zeros(2, 16, 4, dtype=torch.float16), TypeError),
-    (torch.zeros(2, 8, 16, device="meta"), torch.zeros(2, 16, 4,
+    # storage-less tensors are checked too, before their shape-only branch
+    (torch.zeros(2, 8, 16, device="meta"), torch.zeros(3, 16, 4,
                                                        device="meta"),
-     ValueError),                                   # no kernel, no fallback
+     ValueError),
 ])
 def test_rejects_unsupported(x, w, err):
     with pytest.raises(err):
         tgmm.grouped_matmul(x, w)
+
+
+def test_storageless_operands_give_shapes_and_the_kernels_count():
+    """Meta (or fake) operands take the dry run's branch: no kernel, no
+    plain version, an output of the product's shape and dtype, and the
+    kernel's operations and bytes in ``kernels/dry.py``'s tally (the
+    counts behind PERF.md's bound); under grad a backward of the inputs'
+    shapes adds the backward kernels' counts."""
+    from repro_torch.kernels import dry
+    dry.reset()
+    x = torch.empty(4, 24, 32, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    w = torch.empty(4, 32, 16, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    y = tgmm.grouped_matmul(x, w)
+    assert (y.shape, y.dtype, y.device.type) == ((4, 24, 16), x.dtype,
+                                                 "meta")
+    assert dry.calls == {"grouped_matmul": 1}
+    assert dry.flops == 2.0 * 4 * 24 * 32 * 16
+    assert dry.nbytes == (4 * 24 * 32 + 4 * 32 * 16 + 4 * 24 * 16) * 2
+    dx, dw = torch.autograd.grad(y, (x, w), torch.empty_like(y))
+    assert (dx.shape, dw.shape) == (x.shape, w.shape)
+    assert dry.calls == {"grouped_matmul": 1, "grouped_matmul_bwd": 1}
+    assert dry.flops == 6.0 * 4 * 24 * 32 * 16
 
 
 def test_pallas_asserts_at_a_serving_capacity():

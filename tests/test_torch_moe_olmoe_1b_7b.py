@@ -174,9 +174,11 @@ def test_hints_are_identity_without_a_mesh():
         hints.set_hints({"moe_hidden": ("expert", None, None)})
         assert hints.get("moe_hidden") == ("expert", None, None)
         assert hints.constraint(x, "moe_dispatch") is x
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        # a hint that is set lays out a DTensor on the plan's mesh, and
+        # refuses a plain tensor
+        with pytest.raises(TypeError, match="not a DTensor"):
             hints.constraint(x, "moe_hidden")
-        with pytest.raises(NotImplementedError, match="moe_hidden"):
+        with pytest.raises(TypeError, match="moe_hidden"):
             tmoe.moe_mlp(p, cfg, xs)
     finally:
         hints.set_hints(None)

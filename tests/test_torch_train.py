@@ -244,8 +244,10 @@ def test_microbatch_equivalence():
     for a, b in zip(leaves(p1), leaves(p4)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-4,
                                    rtol=5e-3)
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step(ct, accum_specs=object())
+    # accum_specs lays out DTensor params on their mesh: plain ones refuse
+    with pytest.raises(ValueError, match="DTensor"):
+        tstep.make_train_step(ct, microbatches=4, accum_specs=tadamw.zero_specs(
+            _PlanStub(), _Mesh2x2(), tp))(tp, tadamw.init(tp), tb)
     with pytest.raises(ValueError):
         tstep.make_train_step(ct, microbatches=3)(tp, tadamw.init(tp), tb)
 
@@ -272,11 +274,54 @@ def test_loss_decreases():
     assert float(ev["loss"]) < losses[0] * 0.7
 
 
+class _Mesh2x2:
+    """What the planners read of a mesh: a 2 x 2 ("data", "model") one in
+    both packages' spellings."""
+    mesh_dim_names = axis_names = ("data", "model")
+    shape = (2, 2)
+
+    class devices:
+        shape = (2, 2)
+
+
+class _PlanStub:
+    """A plan whose every param is replicated."""
+    @staticmethod
+    def spec_for(path, ndim=None):
+        from repro_torch.core.meshplan import Spec
+        return Spec()
+
+
 def test_adamw_zero_helpers_wait_for_the_mesh():
-    with pytest.raises(NotImplementedError):
-        tadamw.zero_specs(None, None, {})
-    with pytest.raises(NotImplementedError):
-        tadamw.zero1_shardings(None, None, {}, None)
+    """The ZeRO helpers, once the mesh planner's port arrived: the port's
+    ``zero_specs`` and ``zero1_shardings`` give the JAX package's specs
+    for every moment leaf of a plan over a 2 x 2 mesh (the params' plan
+    specs plus "data" on the largest unsharded dim it divides), with the
+    strategies forced alike (the two planners price other lanes)."""
+    from repro.core import meshplan as jmp
+    from repro_torch.core import meshplan as tmp
+    from repro_torch.core.pytree import leaves_with_path
+    for arch, ffn in (("internlm2-1.8b", "ffn_tp"),
+                      ("olmoe-1b-7b", "expert_parallel")):
+        cj, ct, jp, tp = _pair(arch)
+        force = {"attention": "head_tp", "ffn": ffn, "vocab": "vocab_tp"}
+        jplan = jmp.plan_model(cj, _Mesh2x2(), "train", 8, 16,
+                               override=force)
+        tplan = tmp.plan_model(ct, _Mesh2x2(), "train", 8, 16,
+                               override=force)
+        want = {jmp._path_str(p): tuple(s) for p, s in
+                jax.tree_util.tree_flatten_with_path(
+                    jadamw.zero_specs(jplan, _Mesh2x2(), jp),
+                    is_leaf=lambda x: isinstance(x, jax.sharding
+                                                 .PartitionSpec))[0]}
+        specs = tadamw.zero_specs(tplan, _Mesh2x2(), tp)
+        got = {"/".join(p): tuple(s) for p, s in leaves_with_path(specs)}
+        assert got == want, arch
+        sh = tadamw.zero1_shardings(tplan, _Mesh2x2(), tp, tadamw.init(tp))
+        assert tuple(sh.step.spec) == ()
+        for tree in (sh.m, sh.v):
+            assert {"/".join(p): tuple(s.spec)
+                    for p, s in leaves_with_path(tree)} == want, arch
 
 
 @pytest.mark.parametrize("step", [0, 5, 50, 200, 10_000])
