@@ -1,0 +1,11 @@
+"""The benchmark's own tests: ``python -m pytest -q portbench/tests`` from
+the repository's root (CPU; the tests marked ``gpu`` skip without a
+card)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
